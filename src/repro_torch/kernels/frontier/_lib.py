@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+Each source is compiled on first use with ``nvcc`` for Hopper (sm_90a)
+into a shared library with a plain C interface, keyed by a hash of the
+source and the flags, under ``build/repro_torch_kernels/`` at the root of
+the checkout, and loaded with `ctypes`.  Nothing is compiled or loaded
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+__all__ = ["build", "build_dir", "kernel_source", "load_library", "nvcc_path"]
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+#: seconds one nvcc invocation may take before the build is abandoned
+_BUILD_TIMEOUT_S = 600
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def kernel_source(name: str) -> pathlib.Path:
+    """Path of the CUDA source `name` (e.g. ``"fused_tick.cu"``)."""
+    path = _CSRC / name
+    if not path.is_file():
+        raise FileNotFoundError(f"no CUDA source {path}")
+    return path
+
+
+def build_dir() -> pathlib.Path:
+    """``build/repro_torch_kernels`` at the root of the checkout."""
+    return _CSRC.parents[4] / "build" / "repro_torch_kernels"
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels are built from source on first use"
+    )
+
+
+def _library_path(src: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha256()
+    digest.update(src.read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    return build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile `csrc/<name>` unless its keyed library exists; returns the
+    library path.  The compiler's report (registers, spills) is kept
+    beside it as ``<library>.log``."""
+    src = kernel_source(name)
+    lib = _library_path(src)
+    if lib.is_file():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(
+        cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {src.name}:\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: concurrent builders never see a half file
+    return lib
+
+
+def load_library(name: str, bind) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>`, then `bind(lib)` to
+    declare its C interface; both once per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        bind(lib)
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,150 @@
+"""The PyTorch port's fused fleet tick against the JAX reference, on CPU.
+
+The same windows, made from numpy seeds, go through
+`repro.kernels.frontier.fused_fleet_tick` (Pallas in interpret mode off
+the TPU) and `repro_torch.kernels.frontier.fused_fleet_tick` (its plain
+torch version on CPU tensors).  Integer fields must match exactly; float
+fields within rtol 1e-5 / atol 1e-6, because the port's epilog sums
+(shares, gains, exposed) take another order than XLA's.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.frontier import fused_fleet_tick as jax_tick  # noqa: E402
+from repro_torch.kernels.frontier import fused, ops  # noqa: E402
+from repro_torch.kernels.frontier import fused_fleet_tick as torch_tick  # noqa: E402
+
+# the per-job (N, R, S) groups of tests/test_fused_tick.py, plus a rank
+# count past one 128-rank tile and one past two
+_SHAPE_GROUPS = [(2, 3, 6), (4, 8, 3), (1, 1, 4), (3, 16, 8), (3, 129, 5), (2, 300, 6)]
+
+#: stage-index sync profiles of the simulator's six-stage schema
+_SYNCS = {"none": None, "ddp": (2,), "fsdp": (1, 2)}
+
+_FAMILIES = ("frontier", "whatif", "regimes", "coact")
+
+
+def _window(shape, seed):
+    return np.random.default_rng(seed).exponential(1.0, shape).astype(np.float32)
+
+
+def _assert_tick_close(got, want, *, context=""):
+    """Every family present on both sides; ints exact, floats close."""
+    for fam in _FAMILIES:
+        pg, pw = getattr(got, fam), getattr(want, fam)
+        assert (pg is None) == (pw is None), f"{context}: {fam} presence"
+        if pg is None:
+            continue
+        assert pg._fields == pw._fields, f"{context}: {fam} fields"
+        for field in pw._fields:
+            g = getattr(pg, field).numpy()
+            w = np.asarray(getattr(pw, field))
+            msg = f"{context}: {fam}.{field}"
+            assert g.shape == w.shape, msg
+            if w.dtype.kind in "iub":
+                np.testing.assert_array_equal(g, w, err_msg=msg)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=msg)
+
+
+def _both(d, baseline=None, **kw):
+    return (
+        torch_tick(d, baseline, device="cpu", **kw),
+        jax_tick(d, baseline, **kw),
+    )
+
+
+class TestShapeGroups:
+    @pytest.mark.parametrize("shape", _SHAPE_GROUPS)
+    @pytest.mark.parametrize("jobs", [1, 3])
+    def test_all_families(self, shape, jobs):
+        n, r, s = shape
+        d = _window((jobs, n, r, s), seed=n * 100 + r * 10 + s + jobs)
+        hosts = np.random.default_rng(jobs).integers(0, 3, (jobs, r))
+        kw = dict(sync_stages=(1, s - 1), host_index=hosts, num_hosts=3)
+        got, want = _both(d, **kw)
+        _assert_tick_close(got, want, context=f"{jobs}x{shape}")
+
+    @pytest.mark.parametrize("sync", sorted(_SYNCS))
+    @pytest.mark.parametrize("with_regimes", [True, False])
+    def test_sync_profiles(self, sync, with_regimes):
+        d = _window((3, 5, 16, 6), seed=len(sync) + 10 * with_regimes)
+        got, want = _both(
+            d, sync_stages=_SYNCS[sync], with_regimes=with_regimes
+        )
+        _assert_tick_close(got, want, context=f"{sync} regimes={with_regimes}")
+        assert got.coact is None
+
+    def test_hosts_without_regimes(self):
+        d = _window((3, 6, 10, 6), seed=5)
+        hosts = np.random.default_rng(6).integers(0, 4, (3, 10))
+        got, want = _both(
+            d, sync_stages=(2,), host_index=hosts, num_hosts=4,
+            with_regimes=False,
+        )
+        _assert_tick_close(got, want, context="hosts only")
+        assert got.regimes is None and got.coact is not None
+
+    @pytest.mark.parametrize("sync", sorted(_SYNCS))
+    def test_service_call(self, sync):
+        """The service's call: regimes off, hosts off."""
+        d = _window((4, 6, 9, 6), seed=3)
+        got, want = _both(d, sync_stages=_SYNCS[sync], with_regimes=False)
+        _assert_tick_close(got, want, context=sync)
+        assert got.regimes is None and got.coact is None
+
+    def test_explicit_baseline(self):
+        d = _window((2, 4, 8, 6), seed=11)
+        b = np.random.default_rng(12).exponential(1.0, (8, 6)).astype(np.float32)
+        hosts = np.random.default_rng(13).integers(0, 4, (2, 8))
+        got, want = _both(
+            d, b, sync_stages=(2,), host_index=hosts, num_hosts=4
+        )
+        _assert_tick_close(got, want, context="explicit baseline")
+
+    def test_quiet_window_has_no_activity(self):
+        d = np.full((2, 3, 4, 5), 0.5, np.float32)
+        hosts = np.zeros((2, 4), np.int64)
+        got, want = _both(d, sync_stages=(2,), host_index=hosts, num_hosts=2)
+        _assert_tick_close(got, want, context="quiet")
+        assert int(got.regimes.count.sum()) == 0
+        assert int(got.coact.active.sum()) == 0
+
+
+class TestMedian:
+    def test_even_sample_count_takes_the_midpoint(self):
+        """N*R even: the baseline is the mean of the two middle samples,
+        as `jnp.median` computes it; `torch.median` would return the lower
+        one and shift every clipped gain."""
+        d = _window((2, 2, 3, 4), seed=21)       # N*R = 6 samples
+        x = torch.from_numpy(d)
+        med = ops.fleet_median_baseline(x)
+        v = np.sort(d.reshape(2, 6, 4), axis=1)
+        np.testing.assert_array_equal(med.numpy(), (v[:, 2] + v[:, 3]) * 0.5)
+        lower = torch.median(x.reshape(2, 6, 4), dim=1).values
+        assert not torch.equal(med, lower)
+        got, want = _both(d, sync_stages=(1,))
+        _assert_tick_close(got, want, context="even N*R")
+
+
+class TestKernelBoundary:
+    def test_cpu_path_never_launches(self):
+        before = fused.launches
+        torch_tick(_window((2, 3, 4, 5), seed=1), device="cpu")
+        assert fused.launches == before
+
+    def test_kernel_wrapper_refuses_cpu_tensors(self):
+        x = fused.tick_inputs(_window((1, 2, 3, 4), seed=2), device="cpu")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fused._fused_tick_cuda(x)
+
+    def test_bad_arguments_raise(self):
+        d = _window((2, 3, 4, 5), seed=3)
+        with pytest.raises(ValueError, match="num_hosts"):
+            torch_tick(d, host_index=np.zeros((2, 4)), device="cpu")
+        with pytest.raises(ValueError, match="host_index"):
+            torch_tick(d, host_index=np.zeros((2, 5)), num_hosts=2, device="cpu")
+        with pytest.raises(ValueError, match="sync stage"):
+            torch_tick(d, sync_stages=(5,), device="cpu")

@@ -1,0 +1,104 @@
+"""Import hygiene and device discipline of the PyTorch port.
+
+`repro_torch` and `chip_smoke.py` must import neither JAX nor anything
+of the `repro` package; the port's entry points run on CUDA unless asked
+for the CPU, and without a GPU they raise instead of carrying on.
+"""
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.fleet import FleetService  # noqa: E402
+from repro_torch.kernels.frontier import fused  # noqa: E402
+from repro_torch.launch import serve_fleet  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    names.append(m.name)
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "repro"
+    or m.startswith("repro.")
+)
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
+    )
+    env.update(extra)
+    return env
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL],
+        capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    for name in ("repro_torch.fleet.service", "repro_torch.kernels.frontier.fused",
+                 "repro_torch.launch.serve_fleet", "repro_torch.telemetry.packets"):
+        assert name in out["modules"]
+
+
+def test_service_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetService()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_fleet.run(serve_fleet.make_argparser().parse_args(["--jobs", "2"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.fused_fleet_tick(torch.ones(1, 2, 3, 4).numpy())
+
+
+def test_cpu_path_leaves_launches_at_zero(monkeypatch):
+    monkeypatch.setattr(fused, "launches", 0)
+    service = FleetService(device="cpu")
+    assert service.device.type == "cpu"
+    fused.fused_fleet_tick(torch.rand(2, 3, 4, 5), device="cpu")
+    assert fused.launches == 0
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    """No CUDA device: non-zero exit and no result line."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=_env(CUDA_VISIBLE_DEVICES=""),
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    """chip_smoke.py alone in a directory: non-zero exit, no result."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"],
+        capture_output=True, text=True, cwd=tmp_path, timeout=300, env=env,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
