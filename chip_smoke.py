@@ -5,24 +5,38 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU (sm_90a:
 H100).  It drives the port (`src/repro_torch`) only — never the JAX
-package — in four phases, and exits non-zero if any fails:
+package — in these phases, and exits non-zero if any fails:
 
-  build    compiles `csrc/fused_tick.cu` with nvcc from the checkout;
+  build    compiles `csrc/fused_tick.cu` and `csrc/coactivation.cu` with
+           nvcc from the checkout, both at once, and prints what ptxas
+           says of their registers and spills;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
-           group shapes, the larger service shape, edge shapes and a
-           fleet-scale shape: integer fields exact, float fields within
-           rtol 1e-5 / atol 1e-6; times both with CUDA events (L2 flushed
+           group shapes, the larger service shape, edge shapes, the
+           accumulation-expanded 18/27/33-stage schemas, a window fed
+           values around FLT_MIN, and a fleet-scale shape: integer fields
+           exact, float fields within rtol 1e-5 / atol 1e-6 (bit for bit
+           on the FLT_MIN case); times both with CUDA events (L2 flushed
            before every launch) beside the byte bound at 3.35 TB/s, and
            the whole `fused_fleet_tick` call (prolog + kernel + epilog)
            on the host clock;
-  service  runs `serve_fleet` at 64 jobs x 128 ranks x 100-step windows
-           for 3 rounds on the card, with the launch count reset just
-           before, and checks that the kernel ran, that the top route is
-           a faulted job, and that routes and snapshot equal a
-           `--device cpu` run; prints the service's per-phase tick split;
-  profile  the same service run under torch.profiler: device busy time
-           by kernel against the service's tick time.
+  fabric   runs `serve_fleet --topology fabric` at 64 jobs x 128 ranks x
+           100-step windows for 3 rounds on the card, with both launch
+           counts reset just before, and checks that both kernels ran,
+           that exactly one switch-tier fleet incident formed on the
+           shared uplink, and that incidents, escalations, routes and
+           snapshot equal a `--device cpu` run; prints its phase split;
+  coact    runs the co-activation kernel against its plain torch version
+           on the card, exactly, on the fabric run's own group tensors,
+           edge shapes (one job, one host, five stages, tiers with
+           unmapped hosts) and a fleet-scale shape, timed as above;
+  service  runs `serve_fleet` (no topology) at the same size on the card,
+           with the tick's launch count reset just before, and checks
+           that the kernel ran, that the top route is a faulted job, and
+           that routes and snapshot equal a `--device cpu` run; prints
+           the service's per-phase tick split;
+  profile  the service and fabric runs once more under torch.profiler:
+           device busy time by kernel against the service's tick time.
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -35,10 +49,16 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "src/repro_torch/kernels/frontier/csrc/fused_tick.cu"
-REPLACES = "src/repro/kernels/frontier/fused.py:103"
+CSRC = "src/repro_torch/kernels/frontier/csrc"
+#: kernel name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_tick": ("fused_tick.cu", "src/repro/kernels/frontier/fused.py:103"),
+    "coactivation": ("coactivation.cu",
+                     "src/repro/kernels/frontier/incidents.py:101"),
+}
 
 #: H100 SXM: device memory rate and the float32 rate outside the tensor
 #: cores (NVIDIA's data sheet)
@@ -48,11 +68,29 @@ F32_OPS_PER_S = 67e12
 #: two excesses, the clip, the top-2 compares, the what-if max/sub/add
 #: chain): an upper estimate, far below the byte bound either way
 OPS_PER_ELEMENT = 20
+#: the co-activation kernel's operations per activity byte (the test, the
+#: step-sum add, the any-or), at the same rate: far below its byte bound
+COACT_OPS_PER_ELEMENT = 3
 
 #: serve_fleet's sync profiles as stage indices of the six-stage schema
 DDP, FSDP, ZERO1 = (2,), (1, 2), (2, 4)
 SERVICE_ARGS = ["--jobs", "64", "--ranks", "128", "--window", "100",
                 "--rounds", "3"]
+FABRIC_ARGS = SERVICE_ARGS + ["--topology", "fabric"]
+#: the shared uplink of `serve_fleet --topology fabric`
+FABRIC_SWITCH = "fab-sw0"
+#: relative tolerance of the float sums the service reports
+#: (recoverable_s, exposure_s, score): the epilog sums in another order
+#: on the card than on the CPU
+SERVICE_RTOL = 1e-4
+
+
+def accumulation_syncs(m: int):
+    """The six-stage contract expanded for accumulation factor m (3m + 3
+    stages): (S, the last microstep's backward, every backward)."""
+    s = 3 * m + 3
+    every = tuple(3 * i + 2 for i in range(m))
+    return s, every[-1:], every
 
 
 def fail(msg: str) -> None:
@@ -79,9 +117,30 @@ def kernel_cases():
         ("edge", (2, 5, 300, 6), dict(sync_stages=DDP, hosts=3)),
         ("edge, no sync", (2, 5, 300, 6), dict(sync_stages=None)),
         ("edge, 10 stages", (4, 7, 200, 10), dict(sync_stages=(3, 9), hosts=5)),
+        *many_stage_cases(),
+        ("FLT_MIN-fed window", (4, 20, 130, 6),
+         dict(sync_stages=(1, 4), hosts=5, tiny=(2e-38, 1e-39),
+              min_excess_s=0.0, rel_excess=0.5)),
         ("fleet scale", (256, 100, 512, 8),
          dict(sync_stages=(2, 5), with_regimes=False)),
     ]
+
+
+def many_stage_cases():
+    """Accumulation-expanded schemas: past the 16 stages the register
+    variants hold, and (33 stages) a barrier past bit 31."""
+    out = []
+    for m, profile in ((5, "every"), (8, "last"), (10, "every")):
+        s, last, every = accumulation_syncs(m)
+        sync = last if profile == "last" else every + (s - 1,)
+        out.append((f"{s} stages (m={m}, {profile} backward)",
+                    (8, 50, 200, s), dict(sync_stages=sync, hosts=7)))
+        out.append((f"{s} stages, service call", (32, 100, 128, s),
+                    dict(sync_stages=sync, with_regimes=False)))
+    # past 256 stages the prefix nests blocks of blocks
+    out.append(("edge, 300 stages", (2, 6, 40, 300),
+                dict(sync_stages=(17, 150, 299), hosts=3)))
+    return out
 
 
 def flat_fields(acc):
@@ -95,9 +154,10 @@ def flat_fields(acc):
     return out
 
 
-def compare(got, want, torch) -> float:
-    """Ints exact, floats close; returns the largest finite abs error."""
-    worst = 0.0
+def compare(got, want, torch, *, bitwise=False):
+    """Ints exact, floats close (bit for bit with `bitwise`); returns the
+    largest finite abs error and whether every float field is bit-equal."""
+    worst, same_bits = 0.0, True
     for (name, g), (_, w) in zip(flat_fields(got), flat_fields(want)):
         if (g is None) != (w is None):
             raise AssertionError(f"{name}: presence differs")
@@ -105,6 +165,10 @@ def compare(got, want, torch) -> float:
             continue
         if g.dtype.is_floating_point:
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6, msg=name)
+            equal = torch.equal(g.view(torch.int32), w.view(torch.int32))
+            if bitwise and not equal:
+                raise AssertionError(f"{name}: float bits differ")
+            same_bits = same_bits and equal
             fin = torch.isfinite(w)
             if fin.any():
                 worst = max(worst, (g[fin] - w[fin]).abs().max().item())
@@ -112,7 +176,7 @@ def compare(got, want, torch) -> float:
             raise AssertionError(
                 f"{name}: {(g != w).sum().item()} integer entries differ"
             )
-    return worst
+    return worst, same_bits
 
 
 def bytes_moved(x, acc) -> int:
@@ -120,7 +184,7 @@ def bytes_moved(x, acc) -> int:
     its [J, S] rows), each output written once."""
     seen, total = set(), 0
     for t in (x.d, x.wmin, x.bd, x.bw, x.amax, x.second, x.leader,
-              x.relprev, x.thr, x.host):
+              x.relprev, x.thr, x.host, x.sync):
         if t is None:
             continue
         key = t.untyped_storage().data_ptr()
@@ -170,14 +234,19 @@ def wall_ms(fn, reps: int, torch) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def kernel_phase(torch, np, fused):
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
+def kernel_phase(torch, np, fused, flush):
     rows = []
     for label, shape, kw in kernel_cases():
         kw = dict(kw)
         hosts = kw.pop("hosts", 0)
+        tiny = kw.pop("tiny", None)
         rng = np.random.default_rng(sum(shape) + hosts)
-        d = rng.exponential(0.03, shape).astype(np.float32)
+        if tiny is None:
+            d = rng.exponential(0.03, shape).astype(np.float32)
+        else:   # base + 0..59 steps: excesses and sums around FLT_MIN
+            base, step = tiny
+            k = rng.integers(0, 60, shape).astype(np.float32)
+            d = (np.float32(base) + k * np.float32(step)).astype(np.float32)
         if hosts:
             kw["host_index"] = rng.integers(0, hosts, (shape[0], shape[2]))
             kw["num_hosts"] = hosts
@@ -185,7 +254,7 @@ def kernel_phase(torch, np, fused):
         got = fused._fused_tick_cuda(x)
         torch.cuda.synchronize()
         want = fused._fused_tick_plain(x)
-        err = compare(got, want, torch)
+        err, same_bits = compare(got, want, torch, bitwise=tiny is not None)
         pg, pw = fused._epilog(x, got), fused._epilog(x, want)
         for fam in ("frontier", "whatif", "regimes", "coact"):
             a, b = getattr(pg, fam), getattr(pw, fam)
@@ -212,7 +281,8 @@ def kernel_phase(torch, np, fused):
             label=label, shape=list(shape),
             sync=list(kw.get("sync_stages") or ()),
             regimes=bool(kw.get("with_regimes", True)), hosts=hosts,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, tick_ms=tick_ms,
+            max_abs_err=err, bitwise=same_bits,
+            ms=ms, plain_ms=plain_ms, tick_ms=tick_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes,
@@ -222,13 +292,175 @@ def kernel_phase(torch, np, fused):
     return rows
 
 
+def phase_split(out) -> dict:
+    """The service's own per-phase seconds (obs histograms)."""
+    hist = (out.get("obs") or {}).get("metrics", {}).get("histograms", {})
+    return {
+        name.split("phase_seconds.", 1)[1]: h["sum"]
+        for name, h in hist.items() if name.startswith("phase_seconds.")
+    }
+
+
+def serve(serve_fleet, argv):
+    """One `serve_fleet.run` and its host-clock seconds."""
+    t0 = time.perf_counter()
+    out = serve_fleet.run(serve_fleet.make_argparser().parse_args(argv))
+    return out, time.perf_counter() - t0
+
+
+def check_routes(out, ref) -> None:
+    """Routes of a cuda run against a cpu run: same (job, stage, rank),
+    recoverable seconds within SERVICE_RTOL; snapshots equal."""
+    routes = out["routing"]
+    key = [(r["job"], r["stage"], r["rank"]) for r in routes]
+    ref_key = [(r["job"], r["stage"], r["rank"]) for r in ref["routing"]]
+    if key != ref_key:
+        raise AssertionError(f"cuda routes {key} != cpu routes {ref_key}")
+    for a, b in zip(routes, ref["routing"]):
+        tol = SERVICE_RTOL * abs(b["recoverable_s"]) + 1e-4
+        if abs(a["recoverable_s"] - b["recoverable_s"]) > tol:
+            raise AssertionError(f"recoverable_s {a} vs {b}")
+    if out["snapshot"] != ref["snapshot"]:
+        raise AssertionError("cuda and cpu snapshots differ")
+
+
+def close(a: float, b: float) -> bool:
+    return abs(a - b) <= SERVICE_RTOL * abs(b) + 1e-4
+
+
+def check_incidents(out, ref) -> None:
+    """Incident table and escalation plan of a cuda run against a cpu
+    run: every field equal, the float sums within SERVICE_RTOL."""
+    sums = {"exposure_s", "score"}
+    for name in ("incidents", "escalations"):
+        got, want = out[name], ref[name]
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} rows vs {len(want)}")
+        for g, w in zip(got, want):
+            if sorted(g) != sorted(w) or any(
+                g[k] != w[k] for k in g if k not in sums
+            ) or any(not close(g[k], w[k]) for k in g if k in sums):
+                raise AssertionError(f"{name}: {g} vs {w}")
+
+
+def fabric_phase(fused, coact, serve_fleet):
+    """`serve_fleet --topology fabric` on the card: both kernels launch,
+    one switch-tier incident forms on the shared uplink, and the answer
+    equals a cpu run.  Returns the co-activation launches and the
+    activity tensors the engine scored (the service's own groups)."""
+    groups = []
+    launch = coact._co_activation_cuda
+
+    def recording(a):
+        groups.append(a.clone())
+        return launch(a)
+
+    coact._co_activation_cuda = recording
+    fused.launches = 0
+    coact.launches = 0
+    try:
+        out, wall = serve(serve_fleet, FABRIC_ARGS + ["--device", "cuda"])
+    finally:
+        coact._co_activation_cuda = launch
+    launches = {"fused_tick": fused.launches, "coactivation": coact.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the fabric run launched {launches}")
+    fleet = [r for r in out["incidents"] if r["scope"] == "fleet"]
+    if [(r["tier"], r["host"]) for r in fleet] != [("switch", FABRIC_SWITCH)]:
+        raise AssertionError(f"fabric fleet incidents: {fleet}")
+    ref, cpu_wall = serve(serve_fleet, FABRIC_ARGS + ["--device", "cpu"])
+    check_routes(out, ref)
+    check_incidents(out, ref)
+    split = phase_split(out)
+    if "tick.correlate" not in split:
+        raise AssertionError(f"no tick.correlate phase in {sorted(split)}")
+    print("fabric " + json.dumps(dict(
+        launches=launches, wall_s=wall, cpu_wall_s=cpu_wall,
+        group_shapes=[list(g.shape) for g in groups],
+        fleet_incident=fleet[0], incidents=len(out["incidents"]),
+        escalations=len(out["escalations"]),
+        phase_seconds=split,
+    )), flush=True)
+    return launches["coactivation"], groups
+
+
+def coact_cases(torch, groups):
+    """(label, act) of every co-activation kernel case: the fabric run's
+    own group tensors first, then edge and fleet-scale shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def act(shape, p=0.3):
+        r = torch.rand(shape, generator=gen, device="cuda")
+        return (r < p).view(torch.uint8)
+
+    seen, cases = set(), []
+    for g in groups:    # the first group of each shape the run scored
+        if tuple(g.shape) not in seen:
+            seen.add(tuple(g.shape))
+            cases.append((f"fabric service group {len(cases)}", g))
+    cases += [
+        ("edge, one job", act((1, 40, 7, 6))),
+        ("edge, one host", act((5, 30, 1, 6))),
+        ("edge, 5 stages", act((6, 33, 130, 5))),
+    ]
+    # 256 jobs x 400 steps x (512 hosts + 64 switches + 8 pods) x 8 stages
+    cases.append(("fleet scale", act((256, 400, 512 + 64 + 8, 8), p=0.05)))
+    return cases
+
+
+def coact_phase(torch, np, coact, groups, flush):
+    """The co-activation kernel against its plain version on the card,
+    exactly, then timed beside its byte bound."""
+    # the tiered prolog with unmapped (-1) hosts: the combined columns
+    # are what the kernel scores, and each tier must equal the oracle
+    rng = np.random.default_rng(9)
+    host_act = rng.random((4, 25, 12, 6)) < 0.3
+    tiers = (coact.TierAxes("switch", 4, tuple(int(g) for g in rng.integers(-1, 4, 12))),
+             coact.TierAxes("pod", 2, tuple(int(g) for g in rng.integers(-1, 2, 12))))
+    for i, (g, w) in enumerate(zip(
+        coact.tiered_co_activation(host_act, tiers, device="cuda"),
+        coact.tiered_co_activation_ref(host_act, tiers),
+    )):
+        for name, u, v in zip(g._fields, g, w):
+            if not np.array_equal(u.cpu().numpy(), v):
+                raise AssertionError(f"tier {i} {name} differs from the oracle")
+    segments = [torch.from_numpy(host_act).cuda().view(torch.uint8)]
+    segments += [coact._collapse_tier(segments[0], t) for t in tiers]
+    cases = coact_cases(torch, groups)
+    cases.append(("edge, tiers with unmapped hosts",
+                  torch.cat(segments, dim=2).contiguous()))
+    rows = []
+    for label, a in cases:
+        got = coact._co_activation_cuda(a)
+        torch.cuda.synchronize()
+        want = coact._co_activation_plain(a)
+        for name, u, v in zip(got._fields, got, want):
+            if not torch.equal(u, v):
+                raise AssertionError(
+                    f"{label}: {name}: {(u != v).sum().item()} entries differ"
+                )
+        ms = time_ms(lambda: coact._co_activation_cuda(a), 20, torch, flush)
+        plain_ms = time_ms(lambda: coact._co_activation_plain(a), 3, torch, flush)
+        j, n, h, s = a.shape
+        nbytes = a.numel() + 3 * s * h * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = COACT_OPS_PER_ELEMENT * a.numel() / F32_OPS_PER_S * 1e3
+        row = dict(
+            label=label, shape=list(a.shape), density=a.float().mean().item(),
+            max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes,
+        )
+        rows.append(row)
+        print("coact case " + json.dumps(row), flush=True)
+    return rows
+
+
 def service_phase(fused, serve_fleet):
     fused.launches = 0
-    t0 = time.perf_counter()
-    out = serve_fleet.run(
-        serve_fleet.make_argparser().parse_args(SERVICE_ARGS + ["--device", "cuda"])
-    )
-    wall = time.perf_counter() - t0
+    out, wall = serve(serve_fleet, SERVICE_ARGS + ["--device", "cuda"])
     launches = fused.launches
     if launches <= 0:
         raise AssertionError("the service run launched the tick kernel 0 times")
@@ -238,44 +470,27 @@ def service_phase(fused, serve_fleet):
     top = int(routes[0]["job"].split("-")[1])
     if top % 3 != 0:  # serve_fleet faults every 3rd job by default
         raise AssertionError(f"top route {routes[0]['job']} is not a faulted job")
-    t1 = time.perf_counter()
-    ref = serve_fleet.run(
-        serve_fleet.make_argparser().parse_args(SERVICE_ARGS + ["--device", "cpu"])
-    )
-    cpu_wall = time.perf_counter() - t1
-    key = [(r["job"], r["stage"], r["rank"]) for r in routes]
-    ref_key = [(r["job"], r["stage"], r["rank"]) for r in ref["routing"]]
-    if key != ref_key:
-        raise AssertionError(f"cuda routes {key} != cpu routes {ref_key}")
-    for a, b in zip(routes, ref["routing"]):
-        if abs(a["recoverable_s"] - b["recoverable_s"]) > 1e-4 * abs(b["recoverable_s"]) + 1e-4:
-            raise AssertionError(f"recoverable_s {a} vs {b}")
-    if out["snapshot"] != ref["snapshot"]:
-        raise AssertionError("cuda and cpu snapshots differ")
+    ref, cpu_wall = serve(serve_fleet, SERVICE_ARGS + ["--device", "cpu"])
+    check_routes(out, ref)
     obs = out.get("obs") or {}
-    hist = obs.get("metrics", {}).get("histograms", {})
-    split = {
-        name.split("phase_seconds.", 1)[1]: h["sum"]
-        for name, h in hist.items() if name.startswith("phase_seconds.")
-    }
     summary = dict(
         launches=launches, wall_s=wall, cpu_wall_s=cpu_wall,
         top_route=routes[0], routes=len(routes),
-        phase_seconds=split,
+        phase_seconds=phase_split(out),
         tick_frontier=obs.get("tick_frontier"),
     )
     print("service " + json.dumps(summary), flush=True)
     return launches
 
 
-def profile_phase(torch, serve_fleet) -> None:
-    """The service run once more under torch.profiler: device busy time
-    by kernel, against the service's own tick time (obs)."""
+def profile_phase(torch, serve_fleet, label, argv) -> None:
+    """A service run once more under torch.profiler: device busy time by
+    kernel, against the service's own tick time (obs)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = serve_fleet.run(serve_fleet.make_argparser().parse_args(
-            SERVICE_ARGS + ["--device", "cuda"]
+            argv + ["--device", "cuda"]
         ))
     torch.cuda.synchronize()
     rows = []
@@ -288,11 +503,31 @@ def profile_phase(torch, serve_fleet) -> None:
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     tick_s = out["obs"]["tick_frontier"]["exposed_s"]
-    print("profile " + json.dumps(dict(
+    print(f"profile {label} " + json.dumps(dict(
         device_busy_s=busy_s, service_tick_s=tick_s,
         device_busy_share_of_tick=busy_s / tick_s if tick_s else None,
-        top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]],
+        top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]
+             + [r for r in rows[8:] if "coact" in r[1] or "fused_tick" in r[1]]],
     )), flush=True)
+
+
+def kernel_row(name, launches, rows, main_row):
+    """One entry of the `kernels` line: the main path's launches, the
+    largest error over every case, times at the service's own shape."""
+    source, replaces = KERNELS[name]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"{CSRC}/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -306,6 +541,7 @@ def main() -> int:
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, src)
     from repro_torch.kernels.frontier import _lib, fused
+    from repro_torch.kernels.frontier import incidents as coact
     from repro_torch.launch import serve_fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -313,31 +549,31 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = _lib.build("fused_tick.cu")
-    print(f"build {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas " + line.strip(), flush=True)
+    sources = [source for source, _ in KERNELS.values()]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_lib.build, sources))
+    print(f"build {[lib.name for lib in libs]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("ptxas " + line.strip(), flush=True)
 
-    rows = kernel_phase(torch, np, fused)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
+    rows = kernel_phase(torch, np, fused, flush)
+    coact_launches, groups = fabric_phase(fused, coact, serve_fleet)
+    coact_rows = coact_phase(torch, np, coact, groups, flush)
     launches = service_phase(fused, serve_fleet)
-    profile_phase(torch, serve_fleet)
+    profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
+    profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
 
-    main_row = rows[0]  # the service's own DDP group shape
-    print(json.dumps({"kernels": [{
-        "name": "fused_tick",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        # the service's own DDP group shape; the fabric run's first group
+        kernel_row("fused_tick", launches, rows, rows[0]),
+        kernel_row("coactivation", coact_launches, coact_rows, coact_rows[0]),
+    ]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

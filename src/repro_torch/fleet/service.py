@@ -22,15 +22,16 @@ silent for `evict_after` ticks are evicted (bounded state, dead jobs never
 pin memory).
 
 The tick kernel runs on CUDA (`device="cuda"`, the default) or, for the
-tests, as its plain torch version on the CPU.  The incident tier and the
-four-dispatch reference route are not ported yet: asking for either
-raises `NotImplementedError`.
+tests, as its plain torch version on the CPU.  An attached incident tier
+(`incidents.IncidentEngine`) runs its co-activation kernel on its own
+`device`.  The four-dispatch reference route is not ported yet: asking
+for it raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterable
+from typing import TYPE_CHECKING, Iterable
 
 import numpy as np
 import torch
@@ -41,6 +42,9 @@ from ..obs import FleetObs
 from ..telemetry.packets import EvidencePacket
 from .ingest import FleetIngest
 from .registry import FleetRegistry, JobState
+
+if TYPE_CHECKING:  # pragma: no cover
+    from ..incidents import IncidentEngine, Topology
 
 __all__ = ["FleetService", "RouteEntry"]
 
@@ -87,21 +91,17 @@ class FleetService:
         degrade_after: int = 3,
         max_jobs: int = 100_000,
         regime_windows: int = 4,
-        incidents=None,
+        incidents: "IncidentEngine | None" = None,
         fused: bool = True,
+        topology: "Topology | None" = None,
         device="cuda",
         obs: bool = True,
         obs_name: str = "service",
     ):
-        if incidents is not None:
-            raise NotImplementedError(
-                "the incident tier (IncidentEngine, co-activation kernel) "
-                "is not ported yet: it comes with slice 2 of the port"
-            )
         if not fused:
             raise NotImplementedError(
                 "the four-dispatch reference route (fused=False) is not "
-                "ported yet: it comes with slice 2 of the port"
+                "ported yet: it comes with slice 2b of the port"
             )
         #: torch device of the batched kernel refresh: "cuda" runs the
         #: hand-written tick kernel; "cpu" runs its plain torch version
@@ -121,10 +121,22 @@ class FleetService:
             regime_windows=regime_windows,
         )
         self._stager = WindowStager()
+        #: optional incident tier (`incidents.IncidentEngine`): when
+        #: attached, every `tick()` feeds it this round's route entries,
+        #: evictions, and per-job activity series, and packets' declared
+        #: host placements flow into its `Topology` — route answers gain
+        #: identity, lifecycle, and common-cause grouping.
+        self.incidents = incidents
+        #: optional `incidents.Topology` to declare packet host
+        #: placements into when this service runs as one shard of a
+        #: sharded fleet whose coordinator owns the single engine.
+        #: Ignored when `incidents` is attached (the engine's topology
+        #: wins).
+        self._topology = topology
         #: always-on self-observability (`obs`): the tick pipeline
         #: timed as an ordered stage vector (decode -> stage -> kernel ->
-        #: epilog -> regimes -> route), counters/histograms, and a
-        #: flight-recorder ring — surfaced as `snapshot()["obs"]`.
+        #: epilog -> regimes -> correlate -> route), counters/histograms,
+        #: and a flight-recorder ring — surfaced as `snapshot()["obs"]`.
         #: route()/snapshot() outputs are identical either way (the "obs"
         #: section aside).
         self.obs = FleetObs(name=obs_name) if obs else None
@@ -161,7 +173,25 @@ class FleetService:
         if job is not None:
             if self.obs is not None:
                 self.obs.metrics.counter("packets_accepted").inc()
+            self._declare_hosts(job_id, pkt)
         return job
+
+    def _declare_hosts(self, job_id: str, pkt: EvidencePacket) -> None:
+        """Land a packet's declared placement in the fleet topology —
+        the attached engine's, or the coordinator sink when this service
+        is one shard of a sharded fleet.  SFP2-v3 packets also carry the
+        fabric tiers (per-rank switch/pod ids); v2's host-only placement
+        declares just the host tier, never erasing a prior fabric claim."""
+        if not pkt.hosts:
+            return
+        if self.incidents is not None:
+            self.incidents.topology.declare(
+                job_id, pkt.hosts, switches=pkt.switches, pods=pkt.pods
+            )
+        elif self._topology is not None:
+            self._topology.declare(
+                job_id, pkt.hosts, switches=pkt.switches, pods=pkt.pods
+            )
 
     def submit_many(
         self,
@@ -191,6 +221,7 @@ class FleetService:
                     continue
                 if self.registry.update(job_id, pkt, self._tick) is not None:
                     accepted += 1
+                    self._declare_hosts(job_id, pkt)
         if self.obs is not None:
             m = self.obs.metrics
             m.counter("packets").inc(len(pairs))
@@ -203,11 +234,33 @@ class FleetService:
         return accepted
 
     def tick(self) -> list[str]:
-        """Advance the logical clock; evicts and returns stale job ids."""
+        """Advance the logical clock; evicts and returns stale job ids.
+
+        With an incident engine attached, the tick also folds this
+        round's full route answer (every routable job), the evictions,
+        and the per-job regime activity series into the engine — the
+        stateless per-window answer becomes durable incidents.
+        """
         self._tick += 1
         with self._phase("tick.regimes"):
             evicted = self.registry.evict_stale(self._tick)
             self.evicted_total += len(evicted)
+            activity = None
+            if self.incidents is not None:
+                activity = {
+                    job.job_id: (job.regimes.activity(), job.stages)
+                    for job in self.registry.jobs()
+                    if job.regimes is not None and job.regimes.num_steps
+                }
+        if self.incidents is not None:
+            routes = self.route(len(self.registry))
+            with self._phase("tick.correlate"):
+                self.incidents.observe(
+                    self._tick,
+                    routes,
+                    evicted=evicted,
+                    activity=activity,
+                )
         if self.obs is not None:
             self.obs.on_tick(
                 self._tick,
@@ -384,6 +437,12 @@ class FleetService:
             # eviction — summing live jobs made this run backwards.
             "windows_seen": self.registry.windows_total,
         }
+        if self.incidents is not None:
+            # live incidents per lifecycle state (+ lifetime resolved)
+            out["incidents"] = self.incidents.counts()
+            # conflicting-claim re-homings (last-writer-wins topology
+            # churn) — operators watch this to catch placement drift.
+            out["rehomed"] = self.incidents.topology.rehomed
         if self.obs is not None:
             # self-observability section (docs/observability.md) — the
             # only snapshot key carrying wall-clock state; parity

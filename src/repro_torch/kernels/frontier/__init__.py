@@ -1,4 +1,12 @@
 from .fused import FusedTickPacket, TickInputs, fused_fleet_tick, tick_inputs
+from .incidents import (
+    TierAxes,
+    co_activation,
+    co_activation_loop,
+    co_activation_ref,
+    tiered_co_activation,
+    tiered_co_activation_ref,
+)
 from .ops import (
     CoActivationPacket,
     FleetPacket,
@@ -13,6 +21,12 @@ __all__ = [
     "FleetWhatIfPacket",
     "FusedTickPacket",
     "TickInputs",
+    "TierAxes",
+    "co_activation",
+    "co_activation_loop",
+    "co_activation_ref",
     "fused_fleet_tick",
     "tick_inputs",
+    "tiered_co_activation",
+    "tiered_co_activation_ref",
 ]

@@ -20,7 +20,7 @@ __all__ = ["build", "build_dir", "kernel_source", "load_library", "nvcc_path"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-ftz=true", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 #: seconds one nvcc invocation may take before the build is abandoned

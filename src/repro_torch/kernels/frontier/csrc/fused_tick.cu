@@ -30,16 +30,28 @@
 // the tile in the natural [J, N, R, S] layout (a warp's loads of one
 // step are one contiguous run of 32 * S floats).  Each thread walks the N
 // steps in order and keeps its S what-if and regime accumulators in
-// registers, so every float sum is a sequential step-ordered add chain
-// with no multiply (nothing contracts to an FMA).  The TPU kernel folds
-// rank tiles into the frontier outputs across its sequential grid; on
-// this card blocks run in no order, so each block reduces its tile with
-// warp shuffles and writes a per-tile partial, and a second kernel merges
-// the partials in tile order (ties keep the lower tile).  No float
+// registers (S <= 16: arrays sized by the template constant MS = 8 or
+// 16), so every float sum is a sequential step-ordered add chain with no
+// multiply (nothing contracts to an FMA).  Past 16 stages the wide
+// variant takes any S: it keeps its accumulators in the [J, S, R] outputs
+// themselves (each thread reads and writes its own cells, coalesced over
+// the warp's ranks, in step order), walks the stages as running prefixes
+// instead of per-stage arrays (past 16 stages the prefix takes the
+// reference's blocked add order, see `StagePrefix`), and reduces the
+// frontier family 32 stages per round, so neither registers nor shared
+// memory grow with S.  The TPU kernel folds rank tiles into the
+// frontier outputs across its sequential grid; on this card blocks run in
+// no order, so each block reduces its tile with warp shuffles and writes
+// a per-tile partial, and a second kernel merges the partials in tile
+// order (ties keep the lower tile).  No float
 // atomics anywhere.  The what-if boundary statistics (amax, second,
 // leader, relprev rows) come from the caller's prolog, which builds the
 // arrivals with the same stage-ordered adds this kernel uses, so the
 // leader's zero-excess cell cancels exactly.
+//
+// Subnormals: the library is built with -ftz=true, so every float
+// operand and result below FLT_MIN flushes to zero, as in the reference;
+// the plain torch version flushes at the same operations (`ops.ftz`).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,7 +96,8 @@ struct Params {
   long long bd_st[4];
   long long bw_st[4];
   int J, N, R, S, H, T;
-  unsigned sync_mask;
+  unsigned sync_mask;  // the sync set as bits (S <= 16 variants)
+  const unsigned char* sync;  // the same set, 1 byte per stage (wide)
 };
 
 // Top-2 merge of (max, lowest index of the max, second) summaries: the
@@ -317,6 +330,224 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Stages per frontier-reduction round of the wide variant (one lane of
+// the reducing warp per stage).
+constexpr int kChunk = 32;
+
+// The stage prefix of the wide variant, in the reference's add order
+// (`ops.stage_prefix`, the order of XLA's cumulative sum): the stages
+// split into blocks of kBlock, each block takes the ordered prefix of its
+// own stages, and block b > 0 adds the prefix, by this same rule, of the
+// totals of blocks 0 .. b-1.  Up to kBlock stages that is the plain
+// ordered chain of the register variants.  `next` takes the stages in
+// order and returns each one's prefix; level k > 0 holds the block totals
+// of level k - 1.
+constexpr int kBlock = 16;
+constexpr int kLevels = 8;  // kBlock^kLevels stages: any int S
+
+struct StagePrefix {
+  int cnt[kLevels + 1];    // elements taken at each level
+  float loc[kLevels + 1];  // ordered prefix within the current block
+  float inc[kLevels + 1];  // prefix of the last element (levels >= 1)
+
+  __device__ __forceinline__ StagePrefix() {
+    for (int k = 0; k <= kLevels; ++k) cnt[k] = 0;
+  }
+
+  __device__ __forceinline__ float next(float x) {
+    float v = x;
+    float out = 0.f;
+    for (int k = 0; k < kLevels; ++k) {
+      const int pos = cnt[k] % kBlock;
+      const int blk = cnt[k] / kBlock;
+      loc[k] = pos == 0 ? v : loc[k] + v;
+      const float pre = blk == 0 ? loc[k] : inc[k + 1] + loc[k];
+      if (k == 0)
+        out = pre;
+      else
+        inc[k] = pre;
+      ++cnt[k];
+      if (pos != kBlock - 1) break;
+      v = loc[k];  // a block is complete: its total enters the next level
+    }
+    return out;
+  }
+};
+
+// The tick for any S (used past 16 stages).  The arithmetic of
+// `fused_tick_kernel`, with the stage prefixes in the blocked order of
+// `StagePrefix`; per-stage state lives in the outputs and in running
+// prefixes instead of register arrays.
+template <bool REG, bool HOSTS>
+__global__ void __launch_bounds__(kThreads)
+    fused_tick_wide_kernel(const Params p) {
+  const int j = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int r = tile * kThreads + threadIdx.x;
+  const bool valid = r < p.R;
+  const int S = p.S;
+  const int N = p.N;
+  const int R = p.R;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float NEG_INF = -INFINITY;
+
+  // double-buffered warp partials of one round of kChunk stages
+  __shared__ float sm_m[2][kWarps][kChunk];
+  __shared__ float sm_s[2][kWarps][kChunk];
+  __shared__ float sm_c[2][kWarps][kChunk];
+  __shared__ int sm_i[2][kWarps][kChunk];
+
+  const long long rr = valid ? r : 0;  // in-bounds address for idle lanes
+  const float* thr = (REG || HOSTS) ? p.thr + ((long long)j * R + rr) * S : nullptr;
+  int host = -1;
+  if (HOSTS && valid) {
+    host = p.host[(long long)j * R + r];
+    if (host < 0 || host >= p.H) host = -1;  // out of range: no host row
+  }
+  // accumulators: this rank's cells of the [J, S, R] outputs
+  const long long acc0 = (long long)j * S * R + r;
+  if (valid) {
+    for (int s = 0; s < S; ++s) {
+      const long long o = acc0 + (long long)s * R;
+      p.wif[o] = 0.f;
+      if (REG) {
+        p.count[o] = 0;
+        p.onset[o] = kBig;
+        p.last[o] = -1;
+        p.runs[o] = 0;
+        p.streak[o] = 0;
+        p.sume[o] = 0.f;
+        p.sumpfx[o] = 0.f;
+      }
+    }
+  }
+
+  int rounds = 0;  // frontier rounds so far: picks the shared buffer
+  for (int n = 0; n < N; ++n) {
+    const long long jn = (long long)j * N + n;
+    const float* drow = p.d + (jn * R + rr) * S;
+    const float* bdp = p.bd + j * p.bd_st[0] + n * p.bd_st[1] + rr * p.bd_st[2];
+    const float* bwp = p.bw + j * p.bw_st[0] + n * p.bw_st[1] + rr * p.bw_st[2];
+    const float* wmin = p.wmin + jn * S;
+    const float* stat_amax = p.amax + jn * S;
+    const float* stat_sec = p.sec + jn * S;
+    const int* stat_lead = p.lead + jn * S;
+    const float* stat_relp = p.relp + jn * S;
+
+    // the last stage prefix first: every stage's clip needs it
+    float pd_final = 0.f;
+    {
+      StagePrefix pfx;
+      for (int s = 0; s < S; ++s) pd_final = pfx.next(drow[s]);
+    }
+
+    // -- frontier family: kChunk stages per warp-shuffle round ------------
+    StagePrefix pfx_d;
+    for (int c0 = 0; c0 < S; c0 += kChunk, ++rounds) {
+      const int cn = min(kChunk, S - c0);
+      const int buf = rounds & 1;
+      for (int k = 0; k < cn; ++k) {
+        const int s = c0 + k;
+        const float dv = drow[s];
+        const float pd = pfx_d.next(dv);
+        float m = NEG_INF, sc = NEG_INF, cl = NEG_INF;
+        int ix = kBig;
+        if (valid) {
+          m = pd;
+          ix = r;
+          cl = pd_final - fmaxf(0.f, dv - bdp[s * p.bd_st[3]]);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, ix, off);
+          const float s2 = __shfl_xor_sync(0xffffffffu, sc, off);
+          const float c2 = __shfl_xor_sync(0xffffffffu, cl, off);
+          merge_top2(m, ix, sc, m2, i2, s2);
+          cl = fmaxf(cl, c2);
+        }
+        if (lane == 0) {
+          sm_m[buf][warp][k] = m;
+          sm_i[buf][warp][k] = ix;
+          sm_s[buf][warp][k] = sc;
+          sm_c[buf][warp][k] = cl;
+        }
+      }
+      // one barrier per round: a buffer is rewritten two rounds later,
+      // after every reader of this round has passed the next barrier
+      __syncthreads();
+      if (threadIdx.x < cn) {
+        const int k = threadIdx.x;
+        float bm = sm_m[buf][0][k], bs = sm_s[buf][0][k], bc = sm_c[buf][0][k];
+        int bi = sm_i[buf][0][k];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) {
+          merge_top2(bm, bi, bs, sm_m[buf][w][k], sm_i[buf][w][k],
+                     sm_s[buf][w][k]);
+          bc = fmaxf(bc, sm_c[buf][w][k]);
+        }
+        const long long o = (((long long)j * p.T + tile) * N + n) * S + c0 + k;
+        p.pf[o] = bm;
+        p.pl[o] = bi;
+        p.ps[o] = bs;
+        p.pc[o] = bc;
+      }
+    }
+
+    // -- what-if family (+ regime / host activity), one governing segment
+    // at a time: a segment runs to the first barrier at or after its
+    // start, else to the last stage
+    if (!valid) continue;
+    StagePrefix pfx_w;  // prefix of w, taken through each segment's end
+    float base = 0.f;   // prefix at the previous barrier
+    bool has_base = false;
+    for (int start = 0; start < S;) {
+      int end = start;
+      while (end < S - 1 && !p.sync[end]) ++end;
+      float pw_end = 0.f;
+      for (int s = start; s <= end; ++s)
+        pw_end = pfx_w.next(p.sync[s] ? wmin[s] : drow[s]);
+      const float seg = has_base ? pw_end - base : pw_end;
+      for (int s = start; s <= end; ++s) {
+        const float wv = p.sync[s] ? wmin[s] : drow[s];
+        const float ew = fmaxf(0.f, wv - bwp[s * p.bw_st[3]]);
+        const float arr = stat_relp[s] + seg;
+        const float am = stat_amax[s];
+        const float other = (r == stat_lead[s]) ? stat_sec[s] : am;
+        const float new_a = fmaxf(other, arr - ew);
+        const long long o = acc0 + (long long)s * R;
+        p.wif[o] = p.wif[o] + fmaxf(0.f, am - new_a);
+        if (REG || HOSTS) {
+          const bool act = ew > thr[s];
+          if (REG) {
+            const int ai = act ? 1 : 0;
+            const int stk = p.streak[o];
+            const int prv = stk > 0 ? 1 : 0;  // the previous step was active
+            p.count[o] += ai;
+            if (act) {
+              p.onset[o] = min(p.onset[o], n);
+              p.last[o] = max(p.last[o], n);
+            }
+            p.runs[o] += ai * (1 - prv);
+            p.streak[o] = act ? stk + 1 : 0;
+            const float se = p.sume[o] + ew;
+            p.sume[o] = se;
+            p.sumpfx[o] = p.sumpfx[o] + se;
+          }
+          if (HOSTS && act && host >= 0)
+            atomicAdd(&p.hostcnt[(jn * S + s) * p.H + host], 1);
+        }
+      }
+      if (p.sync[end]) {
+        base = pw_end;
+        has_base = true;
+      }
+      start = end + 1;
+    }
+  }
+}
+
 // Merge the per-tile frontier partials in tile order: one thread per
 // (job, step, stage).
 __global__ void fold_tiles_kernel(const Params p) {
@@ -352,13 +583,25 @@ void launch_main(const Params& p, bool reg, bool hosts, cudaStream_t st) {
     fused_tick_kernel<MS, false, false><<<grid, kThreads, 0, st>>>(p);
 }
 
+void launch_wide(const Params& p, bool reg, bool hosts, cudaStream_t st) {
+  const dim3 grid(p.J, p.T);
+  if (reg && hosts)
+    fused_tick_wide_kernel<true, true><<<grid, kThreads, 0, st>>>(p);
+  else if (reg)
+    fused_tick_wide_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
+  else if (hosts)
+    fused_tick_wide_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
+  else
+    fused_tick_wide_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Pointer slots of `ptrs` (device addresses; 0 where a family is off).
 enum {
-  kD, kWmin, kBd, kBw, kAmax, kSec, kLead, kRelp, kThr, kHost,
+  kD, kWmin, kBd, kBw, kAmax, kSec, kLead, kRelp, kThr, kHost, kSync,
   kPf, kPl, kPs, kPc, kF, kFl, kFs, kFc, kWif,
   kCount, kOnset, kLast, kRuns, kStreak, kSume, kSumpfx, kHostcnt,
   kNumPtrs
@@ -373,8 +616,6 @@ enum {
 int fused_tick_num_slots(int which) {
   return which == 0 ? static_cast<int>(kNumPtrs) : static_cast<int>(kNumInts);
 }
-
-int fused_tick_max_stages(void) { return 16; }
 
 // Launches the tick (and the tile fold when T > 1) on `stream`.  Returns
 // cudaGetLastError() after the launches: 0 when both were accepted.
@@ -391,6 +632,7 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
   p.relp = static_cast<const float*>(ptrs[kRelp]);
   p.thr = static_cast<const float*>(ptrs[kThr]);
   p.host = static_cast<const int*>(ptrs[kHost]);
+  p.sync = static_cast<const unsigned char*>(ptrs[kSync]);
   p.pf = static_cast<float*>(ptrs[kPf]);
   p.pl = static_cast<int*>(ptrs[kPl]);
   p.ps = static_cast<float*>(ptrs[kPs]);
@@ -426,8 +668,10 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
   cudaGetLastError();  // clear any stale error from earlier work
   if (p.S <= 8)
     launch_main<8>(p, reg, hosts, st);
-  else
+  else if (p.S <= 16)
     launch_main<16>(p, reg, hosts, st);
+  else
+    launch_wide(p, reg, hosts, st);
   if (p.T > 1) {
     const long long total = (long long)p.J * p.N * p.S;
     const int threads = 256;

@@ -45,6 +45,7 @@ from .ops import (
     FleetRegimePacket,
     FleetWhatIfPacket,
     fleet_median_baseline,
+    ftz,
     imputed_work,
     stage_prefix,
     whatif_stats,
@@ -89,6 +90,7 @@ class TickInputs(NamedTuple):
     relprev: torch.Tensor
     thr: torch.Tensor | None     # [J, R, S] activity threshold
     host: torch.Tensor | None    # [J, R] i32 rank -> host
+    sync: torch.Tensor           # [S] u8, 1 on barrier-bearing stages
     sync_stages: tuple[int, ...]
     num_hosts: int
     with_regimes: bool
@@ -121,8 +123,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_tick_launch.restype = ctypes.c_int
     lib.fused_tick_num_slots.argtypes = [ctypes.c_int]
     lib.fused_tick_num_slots.restype = ctypes.c_int
-    lib.fused_tick_max_stages.argtypes = []
-    lib.fused_tick_max_stages.restype = ctypes.c_int
     lib.fused_tick_error_string.argtypes = [ctypes.c_int]
     lib.fused_tick_error_string.restype = ctypes.c_char_p
 
@@ -150,10 +150,6 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
         raise ValueError(f"d must be a non-empty [J, N, R, S], got {tuple(d.shape)}")
     jn, n, r, s = d.shape
     lib = _lib.load_library(_SOURCE, _bind)
-    if s > lib.fused_tick_max_stages():
-        raise ValueError(
-            f"S={s} stages exceeds the kernel's {lib.fused_tick_max_stages()}"
-        )
     f32, i32 = torch.float32, torch.int32
     _check(d, "d", (jn, n, r, s), f32, dev)
     for name in ("bd", "bw"):
@@ -161,6 +157,7 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     for name in ("amax", "second", "relprev"):
         _check(getattr(x, name), name, (jn, n, s), f32, dev)
     _check(x.leader, "leader", (jn, n, s), i32, dev)
+    _check(x.sync, "sync", (s,), torch.uint8, dev)
     if x.sync_stages:
         _check(x.wmin, "wmin", (jn, n, s), f32, dev)
     with_hosts = x.host is not None
@@ -195,16 +192,16 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
         return 0 if t is None else t.data_ptr()
 
     reg = regimes if regimes is not None else (None,) * 7
+    # the register variants (S <= 16) take the sync set as bits, the wide
+    # variant as the prolog's byte per stage
+    sync_mask = sum(1 << i for i in x.sync_stages) if s <= 16 else 0
     ptrs = [
         ptr(d), ptr(x.wmin if x.sync_stages else d), ptr(x.bd), ptr(x.bw),
         ptr(x.amax), ptr(x.second), ptr(x.leader), ptr(x.relprev),
-        ptr(x.thr), ptr(x.host),
+        ptr(x.thr), ptr(x.host), ptr(x.sync),
         *(ptr(t) for t in parts), ptr(f), ptr(fl), ptr(fs), ptr(fc),
         ptr(wif), *(ptr(t) for t in reg), ptr(hostcnt),
     ]
-    sync_mask = 0
-    for i in x.sync_stages:
-        sync_mask |= 1 << i
     ints = [
         jn, n, r, s, x.num_hosts, tiles, sync_mask,
         int(x.with_regimes), int(with_hosts),
@@ -229,7 +226,7 @@ def _segment_arrivals(pw: torch.Tensor, sync_stages) -> torch.Tensor:
     P[end] - P[start - 1] (P[end] for the first segment)."""
     cols = []
     for start, end in sync_segments(sync_stages, pw.shape[-1]):
-        seg = pw[..., end] - pw[..., start - 1] if start else pw[..., end]
+        seg = ftz(pw[..., end] - pw[..., start - 1]) if start else pw[..., end]
         cols.extend([seg] * (end - start + 1))
     return torch.stack(cols, dim=-1)
 
@@ -247,18 +244,22 @@ def _fused_tick_plain(x: TickInputs) -> TickAccumulators:
     f = pd.amax(dim=2)
     fl = torch.where(pd == f[:, :, None], ranks, BIG_IDX).amin(dim=2)
     fs = torch.where(ranks == fl[:, :, None], neg_inf, pd).amax(dim=2)
-    fc = (pd[..., -1:] - torch.clamp_min(d - x.bd, 0.0)).amax(dim=2)
+    fc = ftz(pd[..., -1:] - torch.clamp_min(ftz(d - x.bd), 0.0)).amax(dim=2)
 
     # what-if family
     w = imputed_work(d, x.sync_stages, x.wmin)
-    ew = torch.clamp_min(w - x.bw, 0.0)
-    arr = x.relprev[:, :, None] + _segment_arrivals(stage_prefix(w), x.sync_stages)
+    ew = torch.clamp_min(ftz(w - x.bw), 0.0)
+    arr = ftz(
+        x.relprev[:, :, None] + _segment_arrivals(stage_prefix(w), x.sync_stages)
+    )
     amax = x.amax[:, :, None]
     other = torch.where(ranks == x.leader[:, :, None], x.second[:, :, None], amax)
-    contrib = torch.clamp_min(amax - torch.maximum(other, arr - ew), 0.0)
+    contrib = torch.clamp_min(
+        ftz(amax - torch.maximum(other, ftz(arr - ew))), 0.0
+    )
     wacc = torch.zeros((jn, r, s), dtype=torch.float32, device=dev)
     for t in range(n):
-        wacc = wacc + contrib[:, t]
+        wacc = ftz(wacc + contrib[:, t])
     wif = wacc.permute(0, 2, 1).contiguous()
 
     act = ew > x.thr[:, None] if x.thr is not None else None
@@ -278,8 +279,8 @@ def _fused_tick_plain(x: TickInputs) -> TickAccumulators:
             runs = runs + ai * (1 - prev)
             streak = torch.where(a, streak + 1, 0).to(torch.int32)
             prev = ai
-            sume = sume + ew[:, t]
-            sumpfx = sumpfx + sume
+            sume = ftz(sume + ew[:, t])
+            sumpfx = ftz(sumpfx + sume)
         regimes = tuple(
             v.permute(0, 2, 1).contiguous()
             for v in (count, onset, last, runs, streak, sume, sumpfx)
@@ -315,13 +316,13 @@ def _accumulate(x: TickInputs) -> TickAccumulators:
 
 
 def _frontier_packet(f, lead, sec, clip) -> FleetPacket:
-    advances = torch.diff(f, dim=2, prepend=torch.zeros_like(f[:, :, :1]))
-    gap = f - sec                                # sec = -inf when R == 1
+    advances = ftz(torch.diff(f, dim=2, prepend=torch.zeros_like(f[:, :, :1])))
+    gap = ftz(f - sec)                           # sec = -inf when R == 1
     exposed = f[:, :, -1]                        # [J, N]
-    denom = torch.clamp_min(exposed.sum(dim=1), 1e-30)
-    shares = advances.sum(dim=1) / denom[:, None]
-    gains = (
-        torch.clamp_min((exposed[:, :, None] - clip).sum(dim=1), 0.0)
+    denom = torch.clamp_min(ftz(exposed.sum(dim=1)), 1e-30)
+    shares = ftz(ftz(advances.sum(dim=1)) / denom[:, None])
+    gains = ftz(
+        torch.clamp_min(ftz(ftz(exposed[:, :, None] - clip).sum(dim=1)), 0.0)
         / denom[:, None]
     )
     return FleetPacket(f, advances, lead, gap, exposed, shares, gains)
@@ -336,7 +337,7 @@ def _regime_packet(count, onset, last, runs, streak, sum_e, sum_pfx, *, n):
         # (sum_t (t - tbar) e) is (n - tbar)*sum_e - C
         tbar = (n - 1) / 2.0
         denom = n * (n * n - 1) / 12.0
-        slope = ((n - tbar) * sum_e - sum_pfx) / denom
+        slope = ftz(ftz(ftz((n - tbar) * sum_e) - sum_pfx) / denom)
     else:
         slope = torch.zeros_like(sum_e)
     return FleetRegimePacket(
@@ -400,7 +401,8 @@ def tick_inputs(
         )
     if isinstance(d, np.ndarray):
         d = torch.from_numpy(np.ascontiguousarray(d))
-    d = torch.as_tensor(d).to(device=device, dtype=torch.float32).contiguous()
+    # subnormal inputs read as zero, as on a flush-to-zero unit
+    d = ftz(torch.as_tensor(d).to(device=device, dtype=torch.float32)).contiguous()
     if d.dim() != 4:
         raise ValueError(f"d must be [J, N, R, S], got {tuple(d.shape)}")
     jn, n, r, s = d.shape
@@ -432,18 +434,21 @@ def tick_inputs(
         bw = med_w[:, None, None, :].expand(d.shape)
         bw_jrs = med_w[:, None, :].expand(jn, r, s)
     else:
-        b = torch.as_tensor(baseline, dtype=torch.float32, device=device)
+        b = ftz(torch.as_tensor(baseline, dtype=torch.float32, device=device))
         bd = bw = b.broadcast_to(d.shape)
         bw_jrs = b.broadcast_to((jn, r, s)) if need_jrs else None
     amax, second, leader, relprev = whatif_stats(w, sync_stages)
+    # the sync set as one byte per stage, for the kernel's wide variant
+    sync = torch.zeros(s, dtype=torch.uint8)
+    sync[list(sync_stages)] = 1
     thr = None
     if need_jrs:
-        thr = torch.clamp_min(
-            float(rel_excess) * bw_jrs, float(min_excess_s)
-        ).contiguous()
+        thr = ftz(torch.clamp_min(
+            ftz(float(rel_excess) * bw_jrs), float(min_excess_s)
+        )).contiguous()
     return TickInputs(
         d, wmin, bd, bw, amax, second, leader, relprev, thr, host,
-        sync_stages, int(num_hosts) if host is not None else 0,
+        sync.to(device), sync_stages, int(num_hosts) if host is not None else 0,
         bool(with_regimes),
     )
 

@@ -7,10 +7,18 @@ the sync-imputed work, the per-job cohort median baselines, and the
 per-(step, stage) what-if boundary statistics.
 
 Layout: the natural [J, N, R, S] window layout throughout.  Stage
-prefixes are explicit stage-ordered adds, never `torch.cumsum`: the
-CUDA kernel rebuilds every rank's boundary arrival with the same adds,
+prefixes are explicit adds in the reference's order (`stage_prefix`),
+never `torch.cumsum`: the CUDA kernel rebuilds every rank's boundary
+arrival with the same adds,
 so the leader's own arrival equals the prolog's `amax` bit for bit and
 its zero-excess cell gains no spurious recoverable seconds.
+
+Subnormals: the reference flushes every float32 value below FLT_MIN in
+magnitude to zero, inputs and results alike (XLA's CPU runtime and the
+TPU both run with flush-to-zero), and the CUDA kernel is built with
+``-ftz=true``.  The torch code around the kernel does the same by its
+own hand: `ftz` after every float operation that can make a subnormal,
+so the plain version flushes on any device and under no process flag.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ __all__ = [
     "FleetRegimePacket",
     "FleetWhatIfPacket",
     "fleet_median_baseline",
+    "ftz",
     "imputed_work",
     "stage_prefix",
     "whatif_stats",
@@ -33,6 +42,15 @@ __all__ = [
 
 #: "never active" onset sentinel and the leader index of no rank
 BIG_IDX = 2**30
+
+_FLT_MIN = torch.finfo(torch.float32).tiny
+
+
+def ftz(t: torch.Tensor) -> torch.Tensor:
+    """Flush float32 subnormals to a zero of the same sign, as a
+    flush-to-zero unit does with an operand or a result; everything else
+    (normals, zeros, infinities, NaNs) passes unchanged."""
+    return torch.where(t.abs() < _FLT_MIN, t * 0.0, t)
 
 
 class FleetPacket(NamedTuple):
@@ -76,13 +94,38 @@ class CoActivationPacket(NamedTuple):
     active: torch.Tensor    # total active job-steps
 
 
+#: stages per block of the stage prefix (see `stage_prefix`)
+_PREFIX_BLOCK = 16
+
+
 def stage_prefix(x: torch.Tensor) -> torch.Tensor:
-    """Prefix over the last (stage) axis as explicit stage-ordered adds
-    (P[0] = x[0], P[s] = P[s-1] + x[s]) — the kernel's order."""
-    cols = [x[..., 0]]
-    for s in range(1, x.shape[-1]):
-        cols.append(cols[-1] + x[..., s])
-    return torch.stack(cols, dim=-1)
+    """Prefix over the last (stage) axis, in the reference's add order.
+
+    Up to 16 stages: explicit stage-ordered adds, P[0] = x[0],
+    P[s] = P[s-1] + x[s].  Past that, the order of XLA's cumulative sum
+    (which the reference's `jnp.cumsum` runs): the stages split into
+    blocks of 16, each block takes the ordered prefix of its own stages,
+    and block b > 0 adds the prefix, taken by this same rule, of the
+    totals of blocks 0 .. b-1.  The CUDA kernel walks the stages in this
+    order too.
+    """
+    s = x.shape[-1]
+    if s <= _PREFIX_BLOCK:
+        cols = [x[..., 0]]
+        for i in range(1, s):
+            cols.append(ftz(cols[-1] + x[..., i]))
+        return torch.stack(cols, dim=-1)
+    nb = -(-s // _PREFIX_BLOCK)
+    pad = torch.zeros(x.shape[:-1] + (nb * _PREFIX_BLOCK - s,),
+                      dtype=x.dtype, device=x.device)
+    blocks = torch.cat([x, pad], dim=-1).unflatten(-1, (nb, _PREFIX_BLOCK))
+    local = stage_prefix(blocks)                          # [..., nb, 16]
+    totals = stage_prefix(local[..., -1])                 # [..., nb]
+    out = torch.cat([
+        local[..., :1, :],
+        ftz(totals[..., :-1, None] + local[..., 1:, :]),
+    ], dim=-2)
+    return out.flatten(-2)[..., :s]
 
 
 def fleet_median_baseline(x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +138,7 @@ def fleet_median_baseline(x: torch.Tensor) -> torch.Tensor:
     jn, n, r, s = x.shape
     v = torch.sort(x.reshape(jn, n * r, s), dim=1).values
     m = n * r
-    return (v[:, (m - 1) // 2] + v[:, m // 2]) * 0.5
+    return ftz(ftz(v[:, (m - 1) // 2] + v[:, m // 2]) * 0.5)
 
 
 def imputed_work(
@@ -128,8 +171,8 @@ def whatif_stats(
     relbase = torch.zeros((jn, n), dtype=w.dtype, device=w.device)
     amax_cols, sec_cols, lead_cols, relp_cols = [], [], [], []
     for start, end in sync_segments(sync_stages, s):
-        seg = p[..., end] - p[..., start - 1] if start else p[..., end]
-        arr = relbase[:, :, None] + seg                       # [J, N, R]
+        seg = ftz(p[..., end] - p[..., start - 1]) if start else p[..., end]
+        arr = ftz(relbase[:, :, None] + seg)                  # [J, N, R]
         amax = arr.amax(dim=2)
         lead = torch.where(
             arr == amax[:, :, None], ranks, BIG_IDX

@@ -15,21 +15,33 @@ recoverable seconds a fix at its (stage, rank) is worth, plus the fault's
 temporal regime (transient/recurring/persistent), persistence weight and
 onset step.
 
-`--device cuda` (the default) runs the tick kernel on the GPU and raises
-where there is none; `--device cpu` runs its plain torch version.  Only
-`--topology none` is offered: the incident tier and the sharded service
-are not part of this package yet.  `--max-windows` bounds each job's
-retained temporal history (memory knob for very long runs).
+With `--topology private|shared|fabric` the packets additionally
+declare each job's rank->host placement (SFP2-v2 host section; `fabric`
+adds the per-rank switch/pod tiers as SFP2-v3 sections) and the
+incident tier runs on top: the summary gains a durable `incidents`
+table (lifecycle, exposure since onset, fleet-level common-cause
+incidents promoted to the narrowest explaining tier — `shared` yields a
+host incident, `fabric` a switch incident on the shared uplink) and an
+`escalations` list (the budgeted profiler-attachment plan; at most
+`--budget` per tick).
+
+`--device cuda` (the default) runs the tick kernel and the co-activation
+kernel on the GPU and raises where there is none; `--device cpu` runs
+their plain torch versions.  The sharded service (`--shards`) is not
+part of this package yet.  `--max-windows` bounds each job's retained
+temporal history (memory knob for very long runs).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 from ..core import WindowAggregator
 from ..fleet import FleetService
-from ..sim import simulate
+from ..incidents import EscalationController, IncidentEngine
+from ..sim import ClusterSpec, simulate
 from ..sim.scenarios import (
     DDP_SYNC,
     E3_FAMILIES,
@@ -47,6 +59,17 @@ SYNC_PROFILES = {
     "zero1": ZERO1_SYNC,
 }
 
+#: host name shared by every faulted job's faulted rank under
+#: --topology shared (the injected common cause).
+SHARED_HOST = "shared-0"
+
+#: fabric nodes shared by every faulted job's faulted rank under
+#: --topology fabric: each faulted rank keeps its own PRIVATE host, but
+#: all those hosts hang under one switch (the oversubscribed-uplink
+#: shape) — the incident engine must promote ONE switch-tier incident.
+SHARED_SWITCH = "fab-sw0"
+SHARED_POD = "fab-pod0"
+
 
 def make_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -63,9 +86,24 @@ def make_argparser() -> argparse.ArgumentParser:
     p.add_argument("--wire", default="sfp2", choices=["sfp1", "sfp2"],
                    help="wire framing (sfp1 = legacy back-compat route; "
                         "int8.delta requires sfp2)")
-    p.add_argument("--topology", default="none", choices=["none"],
-                   help="per-job host placement and the incident tier; "
-                        "only 'none' is offered in this package so far")
+    p.add_argument("--topology", default="none",
+                   choices=["none", "private", "shared", "fabric"],
+                   help="declare per-job host placement in the packets "
+                        "(SFP2-v2 host section) and run the incident "
+                        "tier: 'private' packs 2 ranks/host per job; "
+                        "'shared' additionally re-homes every faulted "
+                        "job's faulted rank onto one fleet-shared host "
+                        "(and pins faulted jobs to the 'data' family, "
+                        "so the common cause is a single host+stage "
+                        "the incident engine must promote); 'fabric' "
+                        "keeps each faulted rank on its own host but "
+                        "hangs all those hosts under one shared switch "
+                        "(per-rank switch/pod SFP2-v3 sections) — the "
+                        "engine must promote ONE switch-tier incident, "
+                        "never per-host duplicates")
+    p.add_argument("--budget", type=int, default=2,
+                   help="profiler escalations per tick "
+                        "(EscalationController token budget)")
     p.add_argument("--max-windows", type=int, default=None,
                    help="bound per-job temporal history: the registry "
                         "retains at most this many windows of regime "
@@ -80,10 +118,43 @@ def make_argparser() -> argparse.ArgumentParser:
                         "as a top-level 'obs' section in the JSON "
                         "summary.  On by default; --no-obs turns it off")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the tick kernel runs: 'cuda' (the "
-                        "hand-written kernel; raises without a GPU) or "
-                        "'cpu' (its plain torch version)")
+                   help="where the kernels run: 'cuda' (the hand-written "
+                        "tick and co-activation kernels; raises without a "
+                        "GPU) or 'cpu' (their plain torch versions)")
     return p
+
+
+def _cluster_for(args, j: int, faulted: bool) -> ClusterSpec | None:
+    """Per-job placement under --topology (None when undeclared)."""
+    if args.topology == "none":
+        return None
+    hosts = list(
+        ClusterSpec.uniform(args.ranks, 2, prefix=f"h{j}").hosts
+    )
+    if args.topology == "shared" and faulted:
+        # the faulted rank of every faulted job sits on ONE shared host:
+        # the injected common cause the incident tier must promote
+        hosts[hidden_fault_rank(j, args.ranks)] = SHARED_HOST
+    if args.topology != "fabric":
+        return ClusterSpec(world_size=args.ranks, hosts=tuple(hosts))
+    # fabric: private switch+pod per host, then the shared uplink over
+    # the faulted rank's (still private) host — no host is shared, so
+    # the narrowest explaining tier is the switch.
+    switches = [f"{h}.sw" for h in hosts]
+    pods = [f"{h}.pod" for h in hosts]
+    if faulted:
+        # the switch is a HOST attribute: every rank of the faulted
+        # rank's host must agree, else last-writer-wins re-homes the
+        # host back onto its private uplink
+        fault_host = hosts[hidden_fault_rank(j, args.ranks)]
+        for r, h in enumerate(hosts):
+            if h == fault_host:
+                switches[r] = SHARED_SWITCH
+                pods[r] = SHARED_POD
+    return ClusterSpec(
+        world_size=args.ranks, hosts=tuple(hosts),
+        switches=tuple(switches), pods=tuple(pods),
+    )
 
 
 def _build_jobs(args) -> list[dict]:
@@ -95,6 +166,12 @@ def _build_jobs(args) -> list[dict]:
         profile_name, sync = profiles[j % len(profiles)]
         faulted = args.fault_every > 0 and j % args.fault_every == 0
         family = E3_FAMILIES[j % len(E3_FAMILIES)]
+        if args.topology in ("shared", "fabric") and faulted:
+            # a shared-node fault surfaces in the same stage in every
+            # sharing job: pin the family (data.next_wait, non-sync in
+            # every profile) so the common cause is promotable
+            family = "data"
+        cluster = _cluster_for(args, j, faulted)
         if faulted:
             sc = hidden_rank_scenario(
                 family, world_size=args.ranks, steps=steps, seed=j,
@@ -104,6 +181,8 @@ def _build_jobs(args) -> list[dict]:
             sc = ddp_scenario(
                 world_size=args.ranks, steps=steps, seed=j, sync=sync
             )
+        if cluster is not None:
+            sc = dataclasses.replace(sc, cluster=cluster)
         jobs.append({
             "job_id": f"job-{j:03d}-{profile_name}",
             "scenario": sc,
@@ -119,20 +198,25 @@ def _build_jobs(args) -> list[dict]:
 
 
 def run(args) -> dict:
-    if getattr(args, "topology", "none") != "none":
-        raise NotImplementedError(
-            "--topology other than 'none' needs the incident tier, which "
-            "comes with slice 2 of the port"
-        )
     if getattr(args, "shards", None):
         raise NotImplementedError(
             "--shards needs the sharded fleet service, which comes with "
             "slice 3 of the port"
         )
+    device = getattr(args, "device", "cuda")
+    engine = (
+        IncidentEngine(device=device) if args.topology != "none" else None
+    )
+    controller = (
+        EscalationController(budget_per_tick=args.budget)
+        if engine is not None
+        else None
+    )
     service = FleetService(
         window_capacity=args.window, evict_after=2, degrade_after=2,
         regime_windows=args.max_windows or 4,
-        device=getattr(args, "device", "cuda"),
+        incidents=engine,
+        device=device,
         obs=getattr(args, "obs", True),
     )
     jobs = _build_jobs(args)
@@ -140,6 +224,7 @@ def run(args) -> dict:
     bytes_sent = 0
     t0 = time.perf_counter()
     routes = []
+    actions = []
     for w in range(args.rounds):
         batch: list[tuple[str, bytes]] = []
         for job in jobs:
@@ -181,6 +266,10 @@ def run(args) -> dict:
         service.submit_many(batch, refresh=True)
         service.tick()
         routes = service.route(args.top_k)
+        if controller is not None:
+            actions.extend(
+                controller.plan(service.current_tick, engine.incidents())
+            )
     elapsed = time.perf_counter() - t0
 
     snapshot = service.snapshot()
@@ -217,6 +306,21 @@ def run(args) -> dict:
     }
     if obs_out is not None:
         out["obs"] = obs_out
+    if engine is not None:
+        # durable incident view: identity + lifecycle over the same
+        # evidence the stateless routing table above re-derives per tick
+        out["incidents"] = engine.table()
+        out["escalations"] = [
+            {
+                "tick": a.tick,
+                "incident": a.incident_id,
+                "jobs": list(a.jobs),
+                "host": a.host,
+                "stage": a.stage,
+                "score": round(a.score, 4),
+            }
+            for a in actions
+        ]
     return out
 
 

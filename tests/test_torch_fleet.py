@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro.launch import serve_fleet as ref_serve  # noqa: E402
 from repro_torch.fleet import FleetService  # noqa: E402
+from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import fused  # noqa: E402
 from repro_torch.launch import serve_fleet as port_serve  # noqa: E402
 
@@ -82,18 +83,43 @@ class TestServeFleetParity:
         assert fused.launches == before
 
 
-class TestNotYetPorted:
-    def test_incidents_raise(self):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            FleetService(device="cpu", incidents=object())
+class TestIncidentTier:
+    def test_service_with_incident_engine_ticks(self):
+        """An attached engine is fed every tick and reported."""
+        engine = IncidentEngine(device="cpu")
+        service = FleetService(device="cpu", incidents=engine)
+        assert service.incidents is engine
+        assert service.tick() == []
+        snap = service.snapshot()
+        assert snap["tick"] == 1
+        assert snap["incidents"] == engine.counts()
+        assert snap["rehomed"] == 0
+        assert "incidents" not in FleetService(device="cpu").snapshot()
 
+    def test_topology_flag_parses_and_runs(self):
+        args = port_serve.make_argparser().parse_args(
+            ["--jobs", "4", "--ranks", "4", "--window", "5", "--rounds", "2",
+             "--topology", "fabric", "--budget", "1", "--device", "cpu"]
+        )
+        assert (args.topology, args.budget) == ("fabric", 1)
+        out = port_serve.run(args)
+        assert isinstance(out["incidents"], list)
+        assert all(a["tick"] in (1, 2) for a in out["escalations"])
+        assert len(out["escalations"]) <= 2
+        with pytest.raises(SystemExit):
+            port_serve.make_argparser().parse_args(["--topology", "mesh"])
+
+    def test_no_topology_has_no_incident_output(self, default_runs):
+        _, port = default_runs
+        assert "incidents" not in port and "escalations" not in port
+
+
+class TestNotYetPorted:
     def test_four_dispatch_route_raises(self):
         with pytest.raises(NotImplementedError, match="slice 2"):
             FleetService(device="cpu", fused=False)
 
-    def test_topology_flag_accepts_only_none(self):
-        with pytest.raises(SystemExit):
-            port_serve.make_argparser().parse_args(["--topology", "shared"])
-        args = argparse.Namespace(topology="shared")
-        with pytest.raises(NotImplementedError, match="slice 2"):
+    def test_shards_raise(self):
+        args = argparse.Namespace(topology="none", shards=2)
+        with pytest.raises(NotImplementedError, match="slice 3"):
             port_serve.run(args)

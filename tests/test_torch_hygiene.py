@@ -16,7 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.fleet import FleetService  # noqa: E402
+from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import fused  # noqa: E402
+from repro_torch.kernels.frontier import incidents as coactivation  # noqa: E402
 from repro_torch.launch import serve_fleet  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -58,7 +60,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for name in ("repro_torch.fleet.service", "repro_torch.kernels.frontier.fused",
-                 "repro_torch.launch.serve_fleet", "repro_torch.telemetry.packets"):
+                 "repro_torch.launch.serve_fleet", "repro_torch.telemetry.packets",
+                 "repro_torch.kernels.frontier.incidents",
+                 "repro_torch.incidents", "repro_torch.incidents.engine",
+                 "repro_torch.incidents.escalation",
+                 "repro_torch.incidents.topology"):
         assert name in out["modules"]
 
 
@@ -70,6 +76,31 @@ def test_service_without_gpu_raises(monkeypatch):
         serve_fleet.run(serve_fleet.make_argparser().parse_args(["--jobs", "2"]))
     with pytest.raises(RuntimeError, match="CUDA"):
         fused.fused_fleet_tick(torch.ones(1, 2, 3, 4).numpy())
+
+
+def test_incident_engine_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IncidentEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IncidentEngine(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_fleet.run(serve_fleet.make_argparser().parse_args(
+            ["--jobs", "2", "--topology", "fabric"]
+        ))
+    assert IncidentEngine(device="cpu").device.type == "cpu"
+
+
+def test_cpu_fabric_run_leaves_coactivation_launches_at_zero(monkeypatch):
+    monkeypatch.setattr(coactivation, "launches", 0)
+    monkeypatch.setattr(fused, "launches", 0)
+    out = serve_fleet.run(serve_fleet.make_argparser().parse_args(
+        ["--jobs", "6", "--ranks", "4", "--window", "5", "--rounds", "2",
+         "--topology", "fabric", "--device", "cpu"]
+    ))
+    assert any(r["scope"] == "fleet" for r in out["incidents"])
+    assert coactivation.launches == 0
+    assert fused.launches == 0
 
 
 def test_cpu_path_leaves_launches_at_zero(monkeypatch):
