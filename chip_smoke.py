@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with a CUDA GPU (sm_90a:
 H100).  It drives the port (`src/repro_torch`) only — never the JAX
 package — in these phases, and exits non-zero if any fails:
 
-  build    compiles `csrc/fused_tick.cu` and `csrc/coactivation.cu` with
-           nvcc from the checkout, both at once, and prints what ptxas
-           says of their registers and spills;
+  build    compiles the five CUDA sources of `csrc/` (`fused_tick.cu`,
+           `coactivation.cu`, `frontier_window.cu`, `whatif_matrix.cu`,
+           `regime_stats.cu`) with nvcc from the checkout, all at once,
+           and prints what ptxas says of their registers and spills;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
            group shapes, the larger service shape, edge shapes, the
@@ -19,7 +20,11 @@ package — in these phases, and exits non-zero if any fails:
            on the FLT_MIN case); times both with CUDA events (L2 flushed
            before every launch) beside the byte bound at 3.35 TB/s, and
            the whole `fused_fleet_tick` call (prolog + kernel + epilog)
-           on the host clock;
+           on the host clock.  At every case it also holds the frontier,
+           what-if and regime kernels (the four-dispatch route) against
+           their plain versions, bit for bit, times them the same way, and
+           holds `four_dispatch_tick` against `fused_fleet_tick` on the
+           card, bit for bit on every field of every family;
   fabric   runs `serve_fleet --topology fabric` at 64 jobs x 128 ranks x
            100-step windows for 3 rounds on the card, with both launch
            counts reset just before, and checks that both kernels ran,
@@ -35,6 +40,23 @@ package — in these phases, and exits non-zero if any fails:
            that the kernel ran, that the top route is a faulted job, and
            that routes and snapshot equal a `--device cpu` run; prints
            the service's per-phase tick split;
+  tick     drives the public `four_dispatch_tick` with every family at
+           the service shape (64 jobs, 64 hosts), launch counts reset
+           just before: each of its four kernels launches once, the fused
+           kernel never, and the packet equals `fused_fleet_tick`'s;
+  replay   runs `python -m repro_torch.launch.replay --synth --jobs 64
+           --ranks 128 --window 100 --ticks 6 --incidents --shared-switch
+           --tick-path four-dispatch` on the card, launch counts reset just
+           before: the frontier, what-if and co-activation kernels launch,
+           the fused kernel never, and one switch-tier fleet incident forms
+           on the shared uplink; the same run with `--tick-path fused`
+           gives the same report outside its wall-clock fields; prints
+           both runs' phase split;
+  groups   the inputs the tick and replay runs handed each single-family
+           kernel, recorded at each (shape, sync set): there each kernel
+           is held against its plain version bit for bit and timed; the
+           `kernels` line takes the frontier and what-if times from the
+           replay's largest group, the regime times from the tick's;
   profile  the service and fabric runs once more under torch.profiler:
            device busy time by kernel against the service's tick time.
 
@@ -44,7 +66,9 @@ device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,7 +82,21 @@ KERNELS = {
     "fused_tick": ("fused_tick.cu", "src/repro/kernels/frontier/fused.py:103"),
     "coactivation": ("coactivation.cu",
                      "src/repro/kernels/frontier/incidents.py:101"),
+    "frontier_window": ("frontier_window.cu",
+                        "src/repro/kernels/frontier/frontier.py:72"),
+    "whatif_matrix": ("whatif_matrix.cu",
+                      "src/repro/kernels/frontier/frontier.py:203"),
+    "regime_stats": ("regime_stats.cu",
+                     "src/repro/kernels/frontier/frontier.py:281"),
 }
+#: the four-dispatch route's single-family kernels -> (CUDA wrapper,
+#: plain version) in `kernels/frontier/frontier.py`
+WRAPPERS = {
+    "frontier_window": ("_frontier_cuda", "_frontier_plain"),
+    "whatif_matrix": ("_whatif_cuda", "_whatif_plain"),
+    "regime_stats": ("_regime_cuda", "_regime_plain"),
+}
+FOUR_DISPATCH = tuple(WRAPPERS)
 
 #: H100 SXM: device memory rate and the float32 rate outside the tensor
 #: cores (NVIDIA's data sheet)
@@ -71,12 +109,25 @@ OPS_PER_ELEMENT = 20
 #: the co-activation kernel's operations per activity byte (the test, the
 #: step-sum add, the any-or), at the same rate: far below its byte bound
 COACT_OPS_PER_ELEMENT = 3
+#: operations per window element of the single-family kernels (upper
+#: estimates): the frontier's prefix add, top-2 compares and clip; the
+#: what-if's excess, arrival and max/sub/add chain; the regime fold's
+#: excess, test, integer updates and two adds.  Far below the byte bound.
+FAMILY_OPS_PER_ELEMENT = {
+    "frontier_window": 10, "whatif_matrix": 10, "regime_stats": 12,
+}
 
 #: serve_fleet's sync profiles as stage indices of the six-stage schema
 DDP, FSDP, ZERO1 = (2,), (1, 2), (2, 4)
 SERVICE_ARGS = ["--jobs", "64", "--ranks", "128", "--window", "100",
                 "--rounds", "3"]
 FABRIC_ARGS = SERVICE_ARGS + ["--topology", "fabric"]
+#: the replay driver at the service's width: 64 jobs x 128 ranks x
+#: 100-step windows, the faulted ranks under one shared switch
+REPLAY_ARGS = ["--synth", "--jobs", "64", "--ranks", "128", "--window", "100",
+               "--ticks", "6", "--incidents", "--shared-switch"]
+#: report fields that carry wall-clock state, and the route's own name
+REPLAY_VOLATILE = ("elapsed_s", "windows_per_s", "obs", "tick_path")
 #: the shared uplink of `serve_fleet --topology fabric`
 FABRIC_SWITCH = "fab-sw0"
 #: relative tolerance of the float sums the service reports
@@ -179,22 +230,167 @@ def compare(got, want, torch, *, bitwise=False):
     return worst, same_bits
 
 
-def bytes_moved(x, acc) -> int:
+def nbytes(inputs, outputs) -> int:
     """Each input read once (distinct storages: a broadcast baseline is
     its [J, S] rows), each output written once."""
     seen, total = set(), 0
-    for t in (x.d, x.wmin, x.bd, x.bw, x.amax, x.second, x.leader,
-              x.relprev, x.thr, x.host, x.sync):
+    for t in inputs:
         if t is None:
             continue
         key = t.untyped_storage().data_ptr()
         if key not in seen:
             seen.add(key)
             total += t.untyped_storage().nbytes()
-    for _, t in flat_fields(acc):
+    for t in outputs:
         if t is not None:
             total += t.numel() * t.element_size()
     return total
+
+
+def bytes_moved(x, acc) -> int:
+    """The fused kernel's bytes: every input it reads, every output."""
+    return nbytes(
+        (x.d, x.wmin, x.bd, x.bw, x.amax, x.second, x.leader, x.relprev,
+         x.thr, x.host, x.sync),
+        (t for _, t in flat_fields(acc)),
+    )
+
+
+def family_inputs(x, name):
+    """The tensors each single-family kernel reads (wmin only with a
+    sync stage)."""
+    wmin = x.wmin if x.sync_stages else None
+    if name == "frontier_window":
+        return (x.d, x.bd)
+    if name == "whatif_matrix":
+        return (x.d, wmin, x.bw, x.amax, x.second, x.leader, x.relprev, x.sync)
+    return (x.d, wmin, x.bw, x.thr, x.sync)
+
+
+def bound(nbytes_, ops_per_element, elements):
+    """(bound ms, what bounds it): bytes at the memory rate against the
+    operations at the float32 rate."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_per_element * elements / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def assert_bitwise(got, want, torch, label):
+    """Integer tensors equal, float tensors bit-equal."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}[{i}]: dtype or shape differs")
+        if g.dtype.is_floating_point:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}[{i}]: {(g != w).sum().item()} entries differ"
+            )
+
+
+def family_err(got, want, torch) -> float:
+    """Largest |got - want| over the outputs: floats where both are
+    finite (inf where their non-finite entries differ), ints as numbers."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point:
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if not torch.allclose(g[~fin], w[~fin], rtol=0, atol=0,
+                                  equal_nan=True):
+                return float("inf")
+            if fin.any():
+                worst = max(worst, (g[fin] - w[fin]).abs().max().item())
+        elif g.numel():
+            worst = max(worst, (g.long() - w.long()).abs().max().item())
+    return worst
+
+
+def assert_packets_bitwise(got, want, torch, label):
+    """Every family of two tick packets present on both sides and equal
+    bit for bit on every field."""
+    for fam in ("frontier", "whatif", "regimes", "coact"):
+        a, b = getattr(got, fam), getattr(want, fam)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label}: {fam} presence differs")
+        if a is not None:
+            assert_bitwise(tuple(a), tuple(b), torch, f"{label}: {fam}")
+
+
+def family_case(torch, kernels, name, x, flush) -> dict:
+    """One single-family kernel against its plain version on the same
+    card tensors: the error measured, then bit for bit; timed beside its
+    byte bound."""
+    cuda, plain = (getattr(kernels, f) for f in WRAPPERS[name])
+    got = cuda(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = family_err(got, want, torch)
+    assert_bitwise(got, want, torch, name)
+    ms = time_ms(lambda: cuda(x), 20, torch, flush)
+    plain_ms = time_ms(lambda: plain(x), 3, torch, flush)
+    moved = nbytes(family_inputs(x, name), got)
+    bound_ms, bound_by = bound(moved, FAMILY_OPS_PER_ELEMENT[name], x.d.numel())
+    return dict(shape=list(x.d.shape), sync=list(x.sync_stages),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=moved)
+
+
+@contextlib.contextmanager
+def recording(kernels, groups):
+    """While open, each single-family CUDA wrapper keeps in
+    `groups[name]` the inputs of its first launch at each (shape, sync
+    stages); the launches themselves are unchanged."""
+    saved = {name: getattr(kernels, cuda) for name, (cuda, _) in WRAPPERS.items()}
+
+    def wrap(name, launch):
+        def recorded(x):
+            key = (tuple(x.d.shape), x.sync_stages)
+            groups.setdefault(name, {}).setdefault(key, x)
+            return launch(x)
+        return recorded
+
+    for name, (cuda, _) in WRAPPERS.items():
+        setattr(kernels, cuda, wrap(name, saved[name]))
+    try:
+        yield groups
+    finally:
+        for name, (cuda, _) in WRAPPERS.items():
+            setattr(kernels, cuda, saved[name])
+
+
+def group_phase(torch, kernels, label, groups, flush) -> dict:
+    """Each single-family kernel against its plain version at every
+    group a main-path run handed it: name -> case rows."""
+    out = {}
+    for name, by_key in groups.items():
+        for x in by_key.values():
+            row = family_case(torch, kernels, name, x, flush)
+            out.setdefault(name, []).append(row)
+            print(f"{label} group {name} " + json.dumps(row), flush=True)
+    return out
+
+
+def four_dispatch_case(torch, fused, kernels, x, kw, flush):
+    """The three single-family kernels against their plain versions on
+    the same inputs (bit for bit), timed beside their byte bounds; then
+    `four_dispatch_tick` against `fused_fleet_tick` on the card, bit for
+    bit.  The regime kernel needs the prolog's threshold: a case without
+    regimes or hosts builds its inputs once more with regimes."""
+    xr = x
+    if x.thr is None:
+        xr = fused.tick_inputs(x.d, **{**kw, "with_regimes": True})
+    out = {
+        name: family_case(torch, kernels, name,
+                          xr if name == "regime_stats" else x, flush)
+        for name in FOUR_DISPATCH
+    }
+    four = fused.four_dispatch_tick(x.d, **kw)
+    one = fused.fused_fleet_tick(x.d, **kw)
+    torch.cuda.synchronize()
+    assert_packets_bitwise(four, one, torch, "four-dispatch vs fused")
+    return out
 
 
 def time_ms(fn, reps: int, torch, flush) -> float:
@@ -234,7 +430,7 @@ def wall_ms(fn, reps: int, torch) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def kernel_phase(torch, np, fused, flush):
+def kernel_phase(torch, np, fused, kernels, flush):
     rows = []
     for label, shape, kw in kernel_cases():
         kw = dict(kw)
@@ -274,18 +470,16 @@ def kernel_phase(torch, np, fused, flush):
         tick_ms = wall_ms(
             lambda: fused.fused_fleet_tick(d_cuda, **kw), 5, torch
         )
-        nbytes = bytes_moved(x, got)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = OPS_PER_ELEMENT * x.d.numel() / F32_OPS_PER_S * 1e3
+        moved = bytes_moved(x, got)
+        bound_ms, bound_by = bound(moved, OPS_PER_ELEMENT, x.d.numel())
         row = dict(
             label=label, shape=list(shape),
             sync=list(kw.get("sync_stages") or ()),
             regimes=bool(kw.get("with_regimes", True)), hosts=hosts,
             max_abs_err=err, bitwise=same_bits,
             ms=ms, plain_ms=plain_ms, tick_ms=tick_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+            four_dispatch=four_dispatch_case(torch, fused, kernels, x, kw, flush),
         )
         rows.append(row)
         print("kernel case " + json.dumps(row), flush=True)
@@ -343,7 +537,7 @@ def check_incidents(out, ref) -> None:
                 raise AssertionError(f"{name}: {g} vs {w}")
 
 
-def fabric_phase(fused, coact, serve_fleet):
+def fabric_phase(fused, kernels, coact, serve_fleet):
     """`serve_fleet --topology fabric` on the card: both kernels launch,
     one switch-tier incident forms on the shared uplink, and the answer
     equals a cpu run.  Returns the co-activation launches and the
@@ -356,14 +550,15 @@ def fabric_phase(fused, coact, serve_fleet):
         return launch(a)
 
     coact._co_activation_cuda = recording
-    fused.launches = 0
-    coact.launches = 0
+    reset_launches(fused, kernels, coact)
     try:
         out, wall = serve(serve_fleet, FABRIC_ARGS + ["--device", "cuda"])
     finally:
         coact._co_activation_cuda = launch
-    launches = {"fused_tick": fused.launches, "coactivation": coact.launches}
-    if min(launches.values()) <= 0:
+    launches = read_launches(fused, kernels, coact)
+    if min(launches["fused_tick"], launches["coactivation"]) <= 0 or any(
+        launches[k] for k in FOUR_DISPATCH
+    ):
         raise AssertionError(f"the fabric run launched {launches}")
     fleet = [r for r in out["incidents"] if r["scope"] == "fleet"]
     if [(r["tier"], r["host"]) for r in fleet] != [("switch", FABRIC_SWITCH)]:
@@ -458,12 +653,13 @@ def coact_phase(torch, np, coact, groups, flush):
     return rows
 
 
-def service_phase(fused, serve_fleet):
-    fused.launches = 0
+def service_phase(fused, kernels, coact, serve_fleet):
+    reset_launches(fused, kernels, coact)
     out, wall = serve(serve_fleet, SERVICE_ARGS + ["--device", "cuda"])
-    launches = fused.launches
-    if launches <= 0:
-        raise AssertionError("the service run launched the tick kernel 0 times")
+    counts = read_launches(fused, kernels, coact)
+    launches = counts.pop("fused_tick")
+    if launches <= 0 or any(counts.values()):
+        raise AssertionError(f"the service run launched {launches} ticks, {counts}")
     routes = out["routing"]
     if not routes:
         raise AssertionError("the service returned no route")
@@ -481,6 +677,109 @@ def service_phase(fused, serve_fleet):
     )
     print("service " + json.dumps(summary), flush=True)
     return launches
+
+
+def reset_launches(fused, kernels, coact) -> None:
+    """Every kernel's launch count to 0, just before a main-path run."""
+    fused.launches = 0
+    coact.launches = 0
+    for name in kernels.launches:
+        kernels.launches[name] = 0
+
+
+def read_launches(fused, kernels, coact) -> dict:
+    return {"fused_tick": fused.launches, "coactivation": coact.launches,
+            **kernels.launches}
+
+
+def tick_phase(torch, np, fused, kernels, coact):
+    """The public `four_dispatch_tick` with every family at the service
+    shape: each of its four kernels launches once, the fused kernel never,
+    and the packet equals `fused_fleet_tick`'s bit for bit.  Returns the
+    launch counts of the four-dispatch call and the inputs each
+    single-family kernel was handed."""
+    rng = np.random.default_rng(64)
+    d = rng.exponential(0.03, (64, 100, 128, 6)).astype(np.float32)
+    kw = dict(sync_stages=DDP, host_index=rng.integers(0, 64, (64, 128)),
+              num_hosts=64, with_regimes=True)
+    groups = {}
+    reset_launches(fused, kernels, coact)
+    t0 = time.perf_counter()
+    with recording(kernels, groups):
+        four = fused.four_dispatch_tick(d, **kw)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(fused, kernels, coact)
+    want = {"fused_tick": 0, "coactivation": 1, "frontier_window": 1,
+            "whatif_matrix": 1, "regime_stats": 1}
+    if launches != want:
+        raise AssertionError(f"four_dispatch_tick launched {launches}")
+    one = fused.fused_fleet_tick(d, **kw)
+    torch.cuda.synchronize()
+    assert_packets_bitwise(four, one, torch, "tick phase")
+    if four.whatif.matrix.shape != (64, 6, 128) or not bool(
+        torch.isfinite(four.whatif.matrix).all()
+    ):
+        raise AssertionError("four-dispatch what-if matrix is not finite [J, S, R]")
+    print("tick " + json.dumps(dict(
+        launches=launches, wall_s=wall_s,
+        active_cells=int(four.regimes.count.gt(0).sum().item()),
+        coactive_hosts=int(four.coact.jobs.ge(2).sum().item()),
+    )), flush=True)
+    return launches, groups
+
+
+def replay_report(out) -> dict:
+    return {k: v for k, v in out.items() if k not in REPLAY_VOLATILE}
+
+
+def replay_phase(fused, kernels, coact, replay):
+    """The replay driver's four-dispatch route on the card: its kernels
+    launch (the fused one never), one switch-tier incident forms on the
+    shared uplink, and the fused route's report is the same outside the
+    wall-clock fields.  Returns the four-dispatch run's launch counts and
+    the groups (inputs at each shape and sync set) its kernels were
+    handed."""
+    runs, groups = {}, {}
+    for path in ("four-dispatch", "fused"):
+        argv = REPLAY_ARGS + ["--tick-path", path, "--device", "cuda"]
+        reset_launches(fused, kernels, coact)
+        t0 = time.perf_counter()
+        with recording(kernels, groups if path == "four-dispatch" else {}):
+            out = replay.run(replay.make_argparser().parse_args(argv))
+        runs[path] = (out, time.perf_counter() - t0,
+                      read_launches(fused, kernels, coact))
+    four, four_wall, launches = runs["four-dispatch"]
+    one, one_wall, one_launches = runs["fused"]
+    if launches["fused_tick"] or min(
+        launches[k] for k in ("frontier_window", "whatif_matrix", "coactivation")
+    ) <= 0:
+        raise AssertionError(f"the four-dispatch replay launched {launches}")
+    if one_launches["fused_tick"] <= 0 or any(
+        one_launches[k] for k in FOUR_DISPATCH
+    ):
+        raise AssertionError(f"the fused replay launched {one_launches}")
+    fleet = [r for r in four["incidents"] if r["scope"] == "fleet"]
+    if [(r["tier"], r["host"]) for r in fleet] != [("switch", FABRIC_SWITCH)]:
+        raise AssertionError(f"replay fleet incidents: {fleet}")
+    if replay_report(four) != replay_report(one):
+        diff = sorted(k for k in replay_report(one)
+                      if four.get(k) != one.get(k))
+        raise AssertionError(f"four-dispatch and fused reports differ in {diff}")
+    if four["windows_replayed"] <= 0 or four["loader"]["skipped"]:
+        raise AssertionError("the replay replayed nothing or skipped rows")
+    print("replay " + json.dumps(dict(
+        launches=launches, fused_launches=one_launches,
+        wall_s=four_wall, fused_wall_s=one_wall,
+        windows_replayed=four["windows_replayed"],
+        groups={name: [[list(shape), list(sync)] for shape, sync in by_key]
+                for name, by_key in groups.items()},
+        accuracy_top2=four["accuracy_top2"],
+        fleet_incident=fleet[0], incidents=len(four["incidents"]),
+        phase_seconds=phase_split(four),
+        fused_phase_seconds=phase_split(one),
+    )), flush=True)
+    return launches, groups
 
 
 def profile_phase(torch, serve_fleet, label, argv) -> None:
@@ -511,9 +810,15 @@ def profile_phase(torch, serve_fleet, label, argv) -> None:
     )), flush=True)
 
 
+def largest(rows) -> dict:
+    """The case with the most window elements (the first of equals)."""
+    return max(rows, key=lambda r: math.prod(r["shape"]))
+
+
 def kernel_row(name, launches, rows, main_row):
     """One entry of the `kernels` line: the main path's launches, the
-    largest error over every case, times at the service's own shape."""
+    largest error over every case, times at `main_row`, a shape the
+    main path handed the kernel."""
     source, replaces = KERNELS[name]
     return {
         "name": name,
@@ -541,8 +846,9 @@ def main() -> int:
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, src)
     from repro_torch.kernels.frontier import _lib, fused
+    from repro_torch.kernels.frontier import frontier as kernels
     from repro_torch.kernels.frontier import incidents as coact
-    from repro_torch.launch import serve_fleet
+    from repro_torch.launch import replay, serve_fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -562,10 +868,17 @@ def main() -> int:
                 print("ptxas " + line.strip(), flush=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
-    rows = kernel_phase(torch, np, fused, flush)
-    coact_launches, groups = fabric_phase(fused, coact, serve_fleet)
+    rows = kernel_phase(torch, np, fused, kernels, flush)
+    coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
     coact_rows = coact_phase(torch, np, coact, groups, flush)
-    launches = service_phase(fused, serve_fleet)
+    launches = service_phase(fused, kernels, coact, serve_fleet)
+    tick_launches, tick_groups = tick_phase(torch, np, fused, kernels, coact)
+    replay_launches, replay_groups = replay_phase(fused, kernels, coact, replay)
+    # each single-family kernel at the inputs its main path handed it
+    tick_rows = group_phase(torch, kernels, "tick", tick_groups, flush)
+    replay_rows = group_phase(torch, kernels, "replay", replay_groups, flush)
+    case_rows = {name: [r["four_dispatch"][name] for r in rows]
+                 for name in FOUR_DISPATCH}
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
 
@@ -573,6 +886,16 @@ def main() -> int:
         # the service's own DDP group shape; the fabric run's first group
         kernel_row("fused_tick", launches, rows, rows[0]),
         kernel_row("coactivation", coact_launches, coact_rows, coact_rows[0]),
+        # the frontier and what-if kernels: the four-dispatch replay's
+        # launches, times at its largest group; the regime kernel: the
+        # public four-dispatch tick's (the service never asks for regimes)
+        *(kernel_row(name, replay_launches[name],
+                     replay_rows[name] + case_rows[name],
+                     largest(replay_rows[name]))
+          for name in ("frontier_window", "whatif_matrix")),
+        kernel_row("regime_stats", tick_launches["regime_stats"],
+                   tick_rows["regime_stats"] + case_rows["regime_stats"],
+                   largest(tick_rows["regime_stats"])),
     ]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -21,11 +21,13 @@ Ticks are logical: callers advance `tick()` per aggregation round; jobs
 silent for `evict_after` ticks are evicted (bounded state, dead jobs never
 pin memory).
 
-The tick kernel runs on CUDA (`device="cuda"`, the default) or, for the
-tests, as its plain torch version on the CPU.  An attached incident tier
-(`incidents.IncidentEngine`) runs its co-activation kernel on its own
-`device`.  The four-dispatch reference route is not ported yet: asking
-for it raises `NotImplementedError`.
+The tick kernels run on CUDA (`device="cuda"`, the default) or, for the
+tests, as their plain torch versions on the CPU.  `fused=True` (the
+default) refreshes each group with one launch of the fused tick kernel;
+`fused=False` takes the four-dispatch reference route (a frontier and a
+what-if launch per group), bit-identical by contract.  An attached
+incident tier (`incidents.IncidentEngine`) runs its co-activation kernel
+on its own `device`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.streaming import WindowStager
-from ..kernels.frontier.fused import fused_fleet_tick
+from ..kernels.frontier.fused import four_dispatch_tick, fused_fleet_tick
 from ..obs import FleetObs
 from ..telemetry.packets import EvidencePacket
 from .ingest import FleetIngest
@@ -98,14 +100,9 @@ class FleetService:
         obs: bool = True,
         obs_name: str = "service",
     ):
-        if not fused:
-            raise NotImplementedError(
-                "the four-dispatch reference route (fused=False) is not "
-                "ported yet: it comes with slice 2b of the port"
-            )
         #: torch device of the batched kernel refresh: "cuda" runs the
-        #: hand-written tick kernel; "cpu" runs its plain torch version
-        #: (tests).  Never falls back from one to the other.
+        #: hand-written tick kernels; "cpu" runs their plain torch
+        #: versions (tests).  Never falls back from one to the other.
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -120,6 +117,13 @@ class FleetService:
             max_jobs=max_jobs,
             regime_windows=regime_windows,
         )
+        #: True routes `refresh_batched` through the fused tick kernel
+        #: (one launch, one read of the stacked windows); False keeps the
+        #: four-dispatch reference composition.  Flip to False when
+        #: triaging a suspected kernel fault: the two routes are
+        #: bit-identical by contract, so any divergence between them IS
+        #: the bug report.
+        self.fused = bool(fused)
         self._stager = WindowStager()
         #: optional incident tier (`incidents.IncidentEngine`): when
         #: attached, every `tick()` feeds it this round's route entries,
@@ -271,7 +275,9 @@ class FleetService:
 
     # -- batched kernel refresh --------------------------------------------
 
-    def refresh_batched(self, *, min_jobs: int = 1) -> int:
+    def refresh_batched(
+        self, *, min_jobs: int = 1, fused: bool | None = None
+    ) -> int:
         """Re-account every *dirty* window-carrying job through the fleet
         tick kernel, grouped by window shape.  Returns jobs refreshed.
 
@@ -286,14 +292,22 @@ class FleetService:
         Each refresh runs the frontier accounting AND the batched
         counterfactual route on the same stacked tensor, so every
         refreshed job carries a dense [S, R] recoverable-time matrix —
-        the evidence `route(k)` ranks by.  Both come out of ONE
-        `fused_fleet_tick` kernel launch that reads the window tensor
-        once.  The counterfactual replays each job's *declared* sync
-        profile (packet `sync_stages`), so jobs are grouped by (window
-        shape, sync profile): one launch per group.  The reference
-        package's buffer donation has no counterpart: the device copy of
-        the staged windows is an ordinary tensor, freed after the launch.
+        the evidence `route(k)` ranks by.  With `fused` (default: the
+        service flag) both come out of ONE `fused_fleet_tick` kernel
+        launch that reads the window tensor once; `fused=False` takes the
+        four-dispatch reference composition (`four_dispatch_tick`),
+        bit-identical by contract.  The counterfactual replays each job's
+        *declared* sync profile (packet `sync_stages`), so jobs are
+        grouped by (window shape, sync profile): one launch per group and
+        family.  The reference package's buffer donation has no
+        counterpart: the device copy of the staged windows is an ordinary
+        tensor, freed after the launch.
         """
+        tick_route = (
+            fused_fleet_tick
+            if (self.fused if fused is None else bool(fused))
+            else four_dispatch_tick
+        )
         refreshed = 0
         for (shape, sync_idx), jobs in sorted(
             self.registry.dirty_groups().items()
@@ -314,12 +328,12 @@ class FleetService:
                 # on the CPU a view of the buffer, consumed right below
                 stacked = torch.from_numpy(staged).to(self.device)
             with self._phase("tick.kernel"):
-                tick = fused_fleet_tick(
+                tick = tick_route(
                     stacked, sync_stages=sync_idx, with_regimes=False,
                 )
                 if self.device.type == "cuda":
-                    # the launch is asynchronous: wait here, or the
-                    # kernel's time is charged to tick.epilog
+                    # the launches are asynchronous: wait here, or the
+                    # kernels' time is charged to tick.epilog
                     torch.cuda.synchronize(self.device)
             with self._phase("tick.epilog"):
                 pkt, wif = tick.frontier, tick.whatif

@@ -2,9 +2,10 @@
 
 Each source is compiled on first use with ``nvcc`` for Hopper (sm_90a)
 into a shared library with a plain C interface, keyed by a hash of the
-source and the flags, under ``build/repro_torch_kernels/`` at the root of
-the checkout, and loaded with `ctypes`.  Nothing is compiled or loaded
-when this module is imported.
+source, the shared headers and the flags, under
+``build/repro_torch_kernels/`` at the root of the checkout, and loaded
+with `ctypes`.  Nothing is compiled or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -15,7 +16,14 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["build", "build_dir", "kernel_source", "load_library", "nvcc_path"]
+__all__ = [
+    "build",
+    "build_dir",
+    "check_tensor",
+    "kernel_source",
+    "load_library",
+    "nvcc_path",
+]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _NVCC_FLAGS = (
@@ -61,8 +69,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(src: pathlib.Path) -> pathlib.Path:
+    """The keyed library of `src`: the hash covers the source, every
+    header of ``csrc/`` (any of them may be included) and the flags, so
+    an edit to a shared header rebuilds every source."""
     digest = hashlib.sha256()
     digest.update(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     return build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
@@ -101,3 +115,18 @@ def load_library(name: str, bind) -> ctypes.CDLL:
         bind(lib)
         _loaded[name] = lib
     return lib
+
+
+def check_tensor(t, name: str, shape, dtype, device, *,
+                 contiguous: bool = True) -> None:
+    """Raise unless tensor `t` (argument `name` of a kernel launch) has
+    the device, dtype and shape the kernel takes, and is contiguous
+    unless the kernel reads it through strides."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

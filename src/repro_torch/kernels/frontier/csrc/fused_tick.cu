@@ -37,7 +37,8 @@
 // themselves (each thread reads and writes its own cells, coalesced over
 // the warp's ranks, in step order), walks the stages as running prefixes
 // instead of per-stage arrays (past 16 stages the prefix takes the
-// reference's blocked add order, see `StagePrefix`), and reduces the
+// reference's blocked add order, see `StagePrefix` in
+// frontier_common.cuh), and reduces the
 // frontier family 32 stages per round, so neither registers nor shared
 // memory grow with S.  The TPU kernel folds rank tiles into the
 // frontier outputs across its sequential grid; on this card blocks run in
@@ -56,11 +57,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "frontier_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBig = 1 << 30;
 
 struct Params {
   // inputs
@@ -99,17 +101,6 @@ struct Params {
   unsigned sync_mask;  // the sync set as bits (S <= 16 variants)
   const unsigned char* sync;  // the same set, 1 byte per stage (wide)
 };
-
-// Top-2 merge of (max, lowest index of the max, second) summaries: the
-// second of the union of two multisets keeps tied duplicates.
-__device__ __forceinline__ void merge_top2(float& m1, int& i1, float& s1,
-                                           float m2, int i2, float s2) {
-  const float second = fmaxf(fminf(m1, m2), fmaxf(s1, s2));
-  const bool take = (m2 > m1) || (m2 == m1 && i2 < i1);
-  m1 = take ? m2 : m1;
-  i1 = take ? i2 : i1;
-  s1 = second;
-}
 
 template <int MS, bool REG, bool HOSTS>
 __global__ void __launch_bounds__(kThreads)
@@ -333,46 +324,6 @@ __global__ void __launch_bounds__(kThreads)
 // Stages per frontier-reduction round of the wide variant (one lane of
 // the reducing warp per stage).
 constexpr int kChunk = 32;
-
-// The stage prefix of the wide variant, in the reference's add order
-// (`ops.stage_prefix`, the order of XLA's cumulative sum): the stages
-// split into blocks of kBlock, each block takes the ordered prefix of its
-// own stages, and block b > 0 adds the prefix, by this same rule, of the
-// totals of blocks 0 .. b-1.  Up to kBlock stages that is the plain
-// ordered chain of the register variants.  `next` takes the stages in
-// order and returns each one's prefix; level k > 0 holds the block totals
-// of level k - 1.
-constexpr int kBlock = 16;
-constexpr int kLevels = 8;  // kBlock^kLevels stages: any int S
-
-struct StagePrefix {
-  int cnt[kLevels + 1];    // elements taken at each level
-  float loc[kLevels + 1];  // ordered prefix within the current block
-  float inc[kLevels + 1];  // prefix of the last element (levels >= 1)
-
-  __device__ __forceinline__ StagePrefix() {
-    for (int k = 0; k <= kLevels; ++k) cnt[k] = 0;
-  }
-
-  __device__ __forceinline__ float next(float x) {
-    float v = x;
-    float out = 0.f;
-    for (int k = 0; k < kLevels; ++k) {
-      const int pos = cnt[k] % kBlock;
-      const int blk = cnt[k] / kBlock;
-      loc[k] = pos == 0 ? v : loc[k] + v;
-      const float pre = blk == 0 ? loc[k] : inc[k + 1] + loc[k];
-      if (k == 0)
-        out = pre;
-      else
-        inc[k] = pre;
-      ++cnt[k];
-      if (pos != kBlock - 1) break;
-      v = loc[k];  // a block is complete: its total enters the next level
-    }
-    return out;
-  }
-};
 
 // The tick for any S (used past 16 stages).  The arithmetic of
 // `fused_tick_kernel`, with the stage prefixes in the blocked order of

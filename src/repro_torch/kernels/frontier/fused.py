@@ -26,32 +26,55 @@ another order than XLA's, so float fields agree within rtol 1e-5 /
 atol 1e-6 and integer fields exactly.  The what-if `exposed` row is the
 frontier's last stage (the per-step makespan max_r sum_s d, summed in
 stage order) instead of a second pass over the window.
+
+`four_dispatch_tick` keeps the unfused composition as the reference
+route (`FleetService(fused=False)`): the same prolog, then the three
+single-family kernels of `frontier.py` and the co-activation kernel,
+each a separate launch that re-reads the window, and the same epilogs.
+Its contract is bit-identity with `fused_fleet_tick` on every field of
+every family, on the card and on the CPU, so a divergence between the
+two routes is a kernel fault.  `fused_tick_ref` composes the per-window
+oracles of `ref.py` into the same packet.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ...core.regimes import RegimeParams as _RegimeParams
-from ...core.whatif import sync_segments
 from . import _lib
+from .frontier import (
+    _excess,
+    _frontier_plain,
+    _regime_plain,
+    _whatif_plain,
+    frontier_window_kernel,
+    regime_stats_kernel,
+    whatif_matrix_kernel,
+)
+from .incidents import co_activation, co_activation_ref
 from .ops import (
-    BIG_IDX,
     CoActivationPacket,
     FleetPacket,
     FleetRegimePacket,
     FleetWhatIfPacket,
-    fleet_median_baseline,
-    ftz,
-    imputed_work,
-    stage_prefix,
-    whatif_stats,
+    TickInputs,
+    frontier_packet,
+    regime_packet,
+    tick_inputs,
 )
+from .ref import frontier_window_ref, regime_segments_ref, whatif_matrix_ref
 
-__all__ = ["FusedTickPacket", "TickInputs", "fused_fleet_tick", "tick_inputs"]
+__all__ = [
+    "FusedTickPacket",
+    "TickInputs",
+    "four_dispatch_tick",
+    "fused_fleet_tick",
+    "fused_tick_ref",
+    "tick_inputs",
+]
 
 _REGIME_DEFAULTS = _RegimeParams()
 _SOURCE = "fused_tick.cu"
@@ -75,25 +98,6 @@ class FusedTickPacket(NamedTuple):
     whatif: FleetWhatIfPacket
     regimes: FleetRegimePacket | None
     coact: CoActivationPacket | None
-
-
-class TickInputs(NamedTuple):
-    """The kernel's inputs, as the prolog builds them."""
-
-    d: torch.Tensor              # [J, N, R, S] f32 contiguous
-    wmin: torch.Tensor | None    # [J, N, S] cross-rank min (sync stages)
-    bd: torch.Tensor             # frontier baseline, view of [J, N, R, S]
-    bw: torch.Tensor             # what-if/regime baseline, view
-    amax: torch.Tensor           # [J, N, S] what-if boundary stats
-    second: torch.Tensor
-    leader: torch.Tensor         # i32
-    relprev: torch.Tensor
-    thr: torch.Tensor | None     # [J, R, S] activity threshold
-    host: torch.Tensor | None    # [J, R] i32 rank -> host
-    sync: torch.Tensor           # [S] u8, 1 on barrier-bearing stages
-    sync_stages: tuple[int, ...]
-    num_hosts: int
-    with_regimes: bool
 
 
 class TickAccumulators(NamedTuple):
@@ -127,18 +131,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_tick_error_string.restype = ctypes.c_char_p
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device, *,
-           contiguous: bool = True) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     """Launch `csrc/fused_tick.cu` on tensors on one CUDA device."""
     global launches
@@ -151,20 +143,21 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     jn, n, r, s = d.shape
     lib = _lib.load_library(_SOURCE, _bind)
     f32, i32 = torch.float32, torch.int32
-    _check(d, "d", (jn, n, r, s), f32, dev)
+    _lib.check_tensor(d, "d", (jn, n, r, s), f32, dev)
     for name in ("bd", "bw"):
-        _check(getattr(x, name), name, (jn, n, r, s), f32, dev, contiguous=False)
+        _lib.check_tensor(getattr(x, name), name, (jn, n, r, s), f32, dev,
+                          contiguous=False)
     for name in ("amax", "second", "relprev"):
-        _check(getattr(x, name), name, (jn, n, s), f32, dev)
-    _check(x.leader, "leader", (jn, n, s), i32, dev)
-    _check(x.sync, "sync", (s,), torch.uint8, dev)
+        _lib.check_tensor(getattr(x, name), name, (jn, n, s), f32, dev)
+    _lib.check_tensor(x.leader, "leader", (jn, n, s), i32, dev)
+    _lib.check_tensor(x.sync, "sync", (s,), torch.uint8, dev)
     if x.sync_stages:
-        _check(x.wmin, "wmin", (jn, n, s), f32, dev)
+        _lib.check_tensor(x.wmin, "wmin", (jn, n, s), f32, dev)
     with_hosts = x.host is not None
     if x.with_regimes or with_hosts:
-        _check(x.thr, "thr", (jn, r, s), f32, dev)
+        _lib.check_tensor(x.thr, "thr", (jn, r, s), f32, dev)
     if with_hosts:
-        _check(x.host, "host", (jn, r), i32, dev)
+        _lib.check_tensor(x.host, "host", (jn, r), i32, dev)
         if x.num_hosts < 1:
             raise ValueError("the host family needs num_hosts >= 1")
 
@@ -221,84 +214,31 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     return TickAccumulators(f, fl, fs, fc, wif, regimes, hostcnt)
 
 
-def _segment_arrivals(pw: torch.Tensor, sync_stages) -> torch.Tensor:
-    """[..., S] segment prefix of each stage's governing boundary:
-    P[end] - P[start - 1] (P[end] for the first segment)."""
-    cols = []
-    for start, end in sync_segments(sync_stages, pw.shape[-1]):
-        seg = ftz(pw[..., end] - pw[..., start - 1]) if start else pw[..., end]
-        cols.extend([seg] * (end - start + 1))
-    return torch.stack(cols, dim=-1)
+def _host_counts(x: TickInputs) -> torch.Tensor:
+    """[J, N, S, H] int32 active-rank counts per host: the activity
+    ``e > thr`` collapsed rank -> host (ranks of no host in range are
+    dropped)."""
+    jn, n, r, s = x.d.shape
+    act = _excess(x) > x.thr[:, None]
+    h = x.num_hosts
+    # out-of-range hosts land in a spill column that is dropped
+    idx = torch.where((x.host >= 0) & (x.host < h), x.host, h).long()
+    cnt = torch.zeros((jn, n, s, h + 1), dtype=torch.int32, device=x.d.device)
+    cnt.scatter_add_(
+        3,
+        idx[:, None, None, :].expand(jn, n, s, r),
+        act.permute(0, 1, 3, 2).to(torch.int32),
+    )
+    return cnt[..., :h].contiguous()
 
 
 def _fused_tick_plain(x: TickInputs) -> TickAccumulators:
-    """The kernel's function in plain torch, steps folded in Python."""
-    d = x.d
-    jn, n, r, s = d.shape
-    dev = d.device
-    ranks = torch.arange(r, dtype=torch.int32, device=dev).view(1, 1, r, 1)
-    neg_inf = float("-inf")
-
-    # frontier family
-    pd = stage_prefix(d)
-    f = pd.amax(dim=2)
-    fl = torch.where(pd == f[:, :, None], ranks, BIG_IDX).amin(dim=2)
-    fs = torch.where(ranks == fl[:, :, None], neg_inf, pd).amax(dim=2)
-    fc = ftz(pd[..., -1:] - torch.clamp_min(ftz(d - x.bd), 0.0)).amax(dim=2)
-
-    # what-if family
-    w = imputed_work(d, x.sync_stages, x.wmin)
-    ew = torch.clamp_min(ftz(w - x.bw), 0.0)
-    arr = ftz(
-        x.relprev[:, :, None] + _segment_arrivals(stage_prefix(w), x.sync_stages)
-    )
-    amax = x.amax[:, :, None]
-    other = torch.where(ranks == x.leader[:, :, None], x.second[:, :, None], amax)
-    contrib = torch.clamp_min(
-        ftz(amax - torch.maximum(other, ftz(arr - ew))), 0.0
-    )
-    wacc = torch.zeros((jn, r, s), dtype=torch.float32, device=dev)
-    for t in range(n):
-        wacc = ftz(wacc + contrib[:, t])
-    wif = wacc.permute(0, 2, 1).contiguous()
-
-    act = ew > x.thr[:, None] if x.thr is not None else None
-    regimes = None
-    if x.with_regimes:
-        zi = torch.zeros((jn, r, s), dtype=torch.int32, device=dev)
-        count, runs, streak, prev = zi, zi, zi, zi
-        onset, last = zi + BIG_IDX, zi - 1
-        sume = torch.zeros((jn, r, s), dtype=torch.float32, device=dev)
-        sumpfx = sume
-        for t in range(n):
-            a = act[:, t]
-            ai = a.to(torch.int32)
-            count = count + ai
-            onset = torch.minimum(onset, torch.where(a, t, BIG_IDX).to(torch.int32))
-            last = torch.maximum(last, torch.where(a, t, -1).to(torch.int32))
-            runs = runs + ai * (1 - prev)
-            streak = torch.where(a, streak + 1, 0).to(torch.int32)
-            prev = ai
-            sume = ftz(sume + ew[:, t])
-            sumpfx = ftz(sumpfx + sume)
-        regimes = tuple(
-            v.permute(0, 2, 1).contiguous()
-            for v in (count, onset, last, runs, streak, sume, sumpfx)
-        )
-
-    hostcnt = None
-    if x.host is not None:
-        h = x.num_hosts
-        # out-of-range hosts land in a spill column that is dropped
-        idx = torch.where((x.host >= 0) & (x.host < h), x.host, h).long()
-        cnt = torch.zeros((jn, n, s, h + 1), dtype=torch.int32, device=dev)
-        cnt.scatter_add_(
-            3,
-            idx[:, None, None, :].expand(jn, n, s, r),
-            act.permute(0, 1, 3, 2).to(torch.int32),
-        )
-        hostcnt = cnt[..., :h].contiguous()
-    return TickAccumulators(f, fl.to(torch.int32), fs, fc, wif, regimes, hostcnt)
+    """The kernel's function in plain torch: the families' plain versions
+    (`frontier.py`) and the host counts, steps folded in Python."""
+    f, fl, fs, fc = _frontier_plain(x)
+    regimes = _regime_plain(x) if x.with_regimes else None
+    hostcnt = _host_counts(x) if x.host is not None else None
+    return TickAccumulators(f, fl, fs, fc, _whatif_plain(x), regimes, hostcnt)
 
 
 def _accumulate(x: TickInputs) -> TickAccumulators:
@@ -315,36 +255,6 @@ def _accumulate(x: TickInputs) -> TickAccumulators:
 # ---------------------------------------------------------------------------
 
 
-def _frontier_packet(f, lead, sec, clip) -> FleetPacket:
-    advances = ftz(torch.diff(f, dim=2, prepend=torch.zeros_like(f[:, :, :1])))
-    gap = ftz(f - sec)                           # sec = -inf when R == 1
-    exposed = f[:, :, -1]                        # [J, N]
-    denom = torch.clamp_min(ftz(exposed.sum(dim=1)), 1e-30)
-    shares = ftz(ftz(advances.sum(dim=1)) / denom[:, None])
-    gains = ftz(
-        torch.clamp_min(ftz(ftz(exposed[:, :, None] - clip).sum(dim=1)), 0.0)
-        / denom[:, None]
-    )
-    return FleetPacket(f, advances, lead, gap, exposed, shares, gains)
-
-
-def _regime_packet(count, onset, last, runs, streak, sum_e, sum_pfx, *, n):
-    onset = torch.where(onset >= n, -1, onset).to(torch.int32)  # BIG -> never
-    span = torch.clamp_min(n - onset, 1).to(torch.float32)
-    duty = torch.where(onset >= 0, count.to(torch.float32) / span, 0.0)
-    if n >= 2:
-        # sum_t t*e = n*sum_e - C, so the least-squares numerator
-        # (sum_t (t - tbar) e) is (n - tbar)*sum_e - C
-        tbar = (n - 1) / 2.0
-        denom = n * (n * n - 1) / 12.0
-        slope = ftz(ftz(ftz((n - tbar) * sum_e) - sum_pfx) / denom)
-    else:
-        slope = torch.zeros_like(sum_e)
-    return FleetRegimePacket(
-        count, onset, last, runs, streak, sum_e, sum_pfx, duty, slope
-    )
-
-
 def _coact_packet(hostcnt: torch.Tensor) -> CoActivationPacket:
     """[J, N, S, H] active-rank counts -> cross-job statistics [S, H]."""
     ah = (hostcnt > 0).to(torch.int32)
@@ -357,11 +267,11 @@ def _coact_packet(hostcnt: torch.Tensor) -> CoActivationPacket:
 
 
 def _epilog(x: TickInputs, acc: TickAccumulators) -> FusedTickPacket:
-    front = _frontier_packet(acc.frontier, acc.leader, acc.second, acc.clipped)
+    front = frontier_packet(acc.frontier, acc.leader, acc.second, acc.clipped)
     whatif = FleetWhatIfPacket(matrix=acc.whatif, exposed=front.exposed)
     regimes = None
     if acc.regimes is not None:
-        regimes = _regime_packet(*acc.regimes, n=x.d.shape[1])
+        regimes = regime_packet(*acc.regimes, n=x.d.shape[1])
     coact = None if acc.hostcnt is None else _coact_packet(acc.hostcnt)
     return FusedTickPacket(front, whatif, regimes, coact)
 
@@ -369,88 +279,6 @@ def _epilog(x: TickInputs, acc: TickAccumulators) -> FusedTickPacket:
 # ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
-
-
-def tick_inputs(
-    d,
-    baseline=None,
-    *,
-    sync_stages: tuple[int, ...] | None = None,
-    host_index=None,
-    num_hosts: int = 0,
-    with_regimes: bool = True,
-    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
-    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
-    device=None,
-) -> TickInputs:
-    """Validate the arguments of `fused_fleet_tick` and run its prolog:
-    the sync-imputed work's [J, N, S] cross-rank minimum, the per-job
-    median baselines (zero-stride views of [J, S] rows) and the what-if
-    boundary stats rows.
-
-    `device` None keeps a tensor where it lies and puts anything else
-    (a NumPy array) on CUDA; pass ``device="cpu"`` for the CPU.
-    """
-    if device is None:
-        device = d.device if isinstance(d, torch.Tensor) else "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "fused_fleet_tick: CUDA was asked for but is not available "
-            "(pass device='cpu' to run the plain version on the CPU)"
-        )
-    if isinstance(d, np.ndarray):
-        d = torch.from_numpy(np.ascontiguousarray(d))
-    # subnormal inputs read as zero, as on a flush-to-zero unit
-    d = ftz(torch.as_tensor(d).to(device=device, dtype=torch.float32)).contiguous()
-    if d.dim() != 4:
-        raise ValueError(f"d must be [J, N, R, S], got {tuple(d.shape)}")
-    jn, n, r, s = d.shape
-    sync_stages = tuple(sorted({int(i) for i in (sync_stages or ())}))
-    sync_segments(sync_stages, s)  # validates the stage indices
-    host = None
-    if host_index is not None:
-        if num_hosts <= 0:
-            raise ValueError("host_index requires num_hosts >= 1")
-        host = torch.as_tensor(host_index, dtype=torch.int32, device=device)
-        if tuple(host.shape) != (jn, r):
-            raise ValueError(
-                f"host_index must be [J, R]={jn, r}, got {tuple(host.shape)}"
-            )
-        host = host.contiguous()
-
-    # The frontier family clips against the cohort median of the RAW
-    # durations, the what-if and regime families against the median of
-    # the sync-imputed work; an explicit baseline serves both, and must
-    # broadcast to [J, R, S] when the regime or host family is on (their
-    # threshold is per cell).
-    need_jrs = with_regimes or host is not None
-    wmin = d.amin(dim=2) if sync_stages else None          # [J, N, S]
-    w = imputed_work(d, sync_stages, wmin)
-    if baseline is None:
-        med_d = fleet_median_baseline(d)                   # [J, S]
-        med_w = fleet_median_baseline(w) if sync_stages else med_d
-        bd = med_d[:, None, None, :].expand(d.shape)
-        bw = med_w[:, None, None, :].expand(d.shape)
-        bw_jrs = med_w[:, None, :].expand(jn, r, s)
-    else:
-        b = ftz(torch.as_tensor(baseline, dtype=torch.float32, device=device))
-        bd = bw = b.broadcast_to(d.shape)
-        bw_jrs = b.broadcast_to((jn, r, s)) if need_jrs else None
-    amax, second, leader, relprev = whatif_stats(w, sync_stages)
-    # the sync set as one byte per stage, for the kernel's wide variant
-    sync = torch.zeros(s, dtype=torch.uint8)
-    sync[list(sync_stages)] = 1
-    thr = None
-    if need_jrs:
-        thr = ftz(torch.clamp_min(
-            ftz(float(rel_excess) * bw_jrs), float(min_excess_s)
-        )).contiguous()
-    return TickInputs(
-        d, wmin, bd, bw, amax, second, leader, relprev, thr, host,
-        sync.to(device), sync_stages, int(num_hosts) if host is not None else 0,
-        bool(with_regimes),
-    )
 
 
 def fused_fleet_tick(
@@ -493,3 +321,111 @@ def fused_fleet_tick(
         rel_excess=rel_excess, device=device,
     )
     return _epilog(x, _accumulate(x))
+
+
+# ---------------------------------------------------------------------------
+# the four-dispatch reference route and the composed oracle
+# ---------------------------------------------------------------------------
+
+
+def _host_activity(x: TickInputs) -> torch.Tensor:
+    """[J, N, H, S] bool host-level activity: the regime activity mask
+    (``e > thr``, the kernels' formulas) collapsed rank -> host."""
+    return (_host_counts(x) > 0).permute(0, 1, 3, 2)
+
+
+def four_dispatch_tick(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    host_index=None,
+    num_hosts: int = 0,
+    with_regimes: bool = True,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> FusedTickPacket:
+    """The SAME packet as `fused_fleet_tick` from separate launches.
+
+    The prolog `fused_fleet_tick` runs, then the frontier kernel, the
+    what-if kernel, the regime kernel (with `with_regimes`) and the
+    co-activation kernel on the host-collapsed activity (with
+    `host_index`), each re-reading the window, and the shared epilogs.
+    Arguments as `fused_fleet_tick`.  The reference route the fused
+    kernel is held against, and the route `FleetService(fused=False)`
+    takes: bit-identical to `fused_fleet_tick` on every field.
+    """
+    x = tick_inputs(
+        d, baseline,
+        sync_stages=sync_stages, host_index=host_index, num_hosts=num_hosts,
+        with_regimes=with_regimes, min_excess_s=min_excess_s,
+        rel_excess=rel_excess, device=device,
+    )
+    front = frontier_packet(*frontier_window_kernel(x))
+    whatif = FleetWhatIfPacket(whatif_matrix_kernel(x), front.exposed)
+    regimes = None
+    if x.with_regimes:
+        regimes = regime_packet(*regime_stats_kernel(x), n=x.d.shape[1])
+    coact = None
+    if x.host is not None:
+        coact = co_activation(_host_activity(x))
+    return FusedTickPacket(front, whatif, regimes, coact)
+
+
+def fused_tick_ref(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    host_index=None,
+    num_hosts: int = 0,
+    with_regimes: bool = True,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> FusedTickPacket:
+    """Oracle: the tick composed from the per-window references.
+
+    Runs `frontier_window_ref`, `whatif_matrix_ref` and
+    `regime_segments_ref` job by job and `co_activation_ref` (NumPy) on
+    the host-collapsed activity, stacks them and applies the shared
+    epilogs, so both kernel routes must match it bit for bit.  Arguments
+    as `fused_fleet_tick`; plain torch on any device.
+    """
+    x = tick_inputs(
+        d, baseline,
+        sync_stages=sync_stages, host_index=host_index, num_hosts=num_hosts,
+        with_regimes=with_regimes, min_excess_s=min_excess_s,
+        rel_excess=rel_excess, device=device,
+    )
+    jn, n = x.d.shape[:2]
+
+    def stack(packets, fields):
+        return [torch.stack([getattr(p, f) for p in packets]) for f in fields]
+
+    fws = [frontier_window_ref(x.d[j], x.bd[j]) for j in range(jn)]
+    front = frontier_packet(*stack(fws, ("frontier", "leader", "second", "clipped")))
+    whatif = FleetWhatIfPacket(
+        matrix=torch.stack([
+            whatif_matrix_ref(x.d[j], x.bw[j], x.sync_stages) for j in range(jn)
+        ]),
+        exposed=front.exposed,
+    )
+    regimes = None
+    if x.with_regimes:
+        rws = [
+            regime_segments_ref(
+                x.d[j], x.bw[j, 0], sync_stages=x.sync_stages,
+                min_excess_s=min_excess_s, rel_excess=rel_excess,
+            )
+            for j in range(jn)
+        ]
+        regimes = regime_packet(*stack(rws, rws[0]._fields), n=n)
+    coact = None
+    if x.host is not None:
+        ref = co_activation_ref(_host_activity(x).cpu().numpy())
+        coact = CoActivationPacket(
+            *(torch.from_numpy(a).to(x.d.device) for a in ref)
+        )
+    return FusedTickPacket(front, whatif, regimes, coact)

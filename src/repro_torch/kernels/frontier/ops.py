@@ -1,31 +1,41 @@
-"""Packet types and the torch prolog of the fleet tick.
+"""Packet types, the torch prolog of the fleet tick and the kernel routes.
 
-The counterparts of the reference package's `kernels/frontier/ops.py`
-pieces that the fused tick needs: the per-job packet NamedTuples (now of
-torch tensors) and the cheap prolog reductions that feed the kernel —
-the sync-imputed work, the per-job cohort median baselines, and the
-per-(step, stage) what-if boundary statistics.
+The counterpart of the reference package's `kernels/frontier/ops.py`:
+
+  * the per-job packet NamedTuples (now of torch tensors), for the fleet
+    ([J, ...]) and for one window (the J = 1 squeezes);
+  * the prolog every kernel route shares (`tick_inputs`): the input as a
+    flushed float32 tensor on its device, the sync-imputed work's
+    cross-rank minimum, the per-job cohort median baselines, the what-if
+    boundary statistics and the regime threshold;
+  * the epilogs every route shares (`frontier_packet`, `regime_packet`);
+  * the single-family routes of the four-dispatch reference path —
+    `fleet_frontier_window`, `fleet_whatif_matrix`, `fleet_regime_stats`,
+    each one launch of its kernel in `frontier.py` — with their J = 1
+    squeezes, per-job loops and plain-torch oracle routes.
 
 Layout: the natural [J, N, R, S] window layout throughout.  Stage
 prefixes are explicit adds in the reference's order (`stage_prefix`),
-never `torch.cumsum`: the CUDA kernel rebuilds every rank's boundary
-arrival with the same adds,
-so the leader's own arrival equals the prolog's `amax` bit for bit and
-its zero-excess cell gains no spurious recoverable seconds.
+never `torch.cumsum`: the CUDA kernels rebuild every rank's boundary
+arrival with the same adds, so the leader's own arrival equals the
+prolog's `amax` bit for bit and its zero-excess cell gains no spurious
+recoverable seconds.
 
 Subnormals: the reference flushes every float32 value below FLT_MIN in
 magnitude to zero, inputs and results alike (XLA's CPU runtime and the
-TPU both run with flush-to-zero), and the CUDA kernel is built with
-``-ftz=true``.  The torch code around the kernel does the same by its
+TPU both run with flush-to-zero), and the CUDA kernels are built with
+``-ftz=true``.  The torch code around the kernels does the same by its
 own hand: `ftz` after every float operation that can make a subnormal,
-so the plain version flushes on any device and under no process flag.
+so the plain versions flush on any device and under no process flag.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ...core.regimes import RegimeParams as _RegimeParams
 from ...core.whatif import sync_segments
 
 __all__ = [
@@ -33,12 +43,35 @@ __all__ = [
     "FleetPacket",
     "FleetRegimePacket",
     "FleetWhatIfPacket",
+    "FrontierPacket",
+    "RegimePacket",
+    "TickInputs",
+    "WhatIfPacket",
+    "fleet_frontier_loop",
+    "fleet_frontier_window",
     "fleet_median_baseline",
+    "fleet_regime_stats",
+    "fleet_whatif_matrix",
+    "frontier_packet",
+    "frontier_window",
+    "frontier_window_reference",
     "ftz",
     "imputed_work",
+    "regime_packet",
+    "regime_stats_loop",
+    "regime_stats_window",
+    "segment_arrivals",
     "stage_prefix",
+    "step_makespan",
+    "tick_inputs",
+    "whatif_matrix",
+    "whatif_matrix_loop",
     "whatif_stats",
 ]
+
+#: the regime routes' threshold defaults: the one definition in
+#: `core.regimes`
+_REGIME_DEFAULTS = _RegimeParams()
 
 #: "never active" onset sentinel and the leader index of no rank
 BIG_IDX = 2**30
@@ -65,6 +98,25 @@ class FleetPacket(NamedTuple):
     gains: torch.Tensor      # [J, S]   Eq. 4 per job
 
 
+class FrontierPacket(NamedTuple):
+    """Evidence packet of one window d[N, R, S] (the J = 1 squeeze)."""
+
+    frontier: torch.Tensor   # [N, S]
+    advances: torch.Tensor   # [N, S]
+    leader: torch.Tensor     # [N, S] i32
+    gap: torch.Tensor        # [N, S]  max - second (+inf when R == 1)
+    exposed: torch.Tensor    # [N]
+    shares: torch.Tensor     # [S]     Eq. 2
+    gains: torch.Tensor      # [S]     Eq. 4 (clipped static gain)
+
+
+class WhatIfPacket(NamedTuple):
+    """Counterfactual what-if output of one window d[N, R, S]."""
+
+    matrix: torch.Tensor     # [S, R] recoverable seconds per candidate
+    exposed: torch.Tensor    # [N]    per-step makespan
+
+
 class FleetWhatIfPacket(NamedTuple):
     """Per-job what-if matrices for a stacked fleet tensor d[J, N, R, S]."""
 
@@ -84,6 +136,21 @@ class FleetRegimePacket(NamedTuple):
     sum_prefix: torch.Tensor     # f32 C = sum_t A_t (running sums)
     duty: torch.Tensor           # f32 active fraction since onset
     slope: torch.Tensor          # f32 excess trend, seconds/step
+
+
+class RegimePacket(NamedTuple):
+    """Regime statistics of one window d[N, R, S], [S, R] each (the J = 1
+    squeeze of `FleetRegimePacket`)."""
+
+    count: torch.Tensor
+    onset: torch.Tensor
+    last: torch.Tensor
+    runs: torch.Tensor
+    streak: torch.Tensor
+    sum_excess: torch.Tensor
+    sum_prefix: torch.Tensor
+    duty: torch.Tensor
+    slope: torch.Tensor
 
 
 class CoActivationPacket(NamedTuple):
@@ -192,3 +259,363 @@ def whatif_stats(
         torch.stack(lead_cols, dim=-1),
         torch.stack(relp_cols, dim=-1),
     )
+
+
+def segment_arrivals(pw: torch.Tensor, sync_stages) -> torch.Tensor:
+    """[..., S] segment prefix of each stage's governing boundary:
+    P[end] - P[start - 1] (P[end] for the first segment), from the stage
+    prefix `pw` of the imputed work."""
+    cols = []
+    for start, end in sync_segments(sync_stages, pw.shape[-1]):
+        seg = ftz(pw[..., end] - pw[..., start - 1]) if start else pw[..., end]
+        cols.extend([seg] * (end - start + 1))
+    return torch.stack(cols, dim=-1)
+
+
+def step_makespan(d: torch.Tensor) -> torch.Tensor:
+    """[J, N] per-step makespan: max over ranks of the last stage prefix,
+    which is the frontier family's last stage bit for bit (the what-if
+    packets' `exposed`)."""
+    return stage_prefix(d)[..., -1].amax(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# the prolog every kernel route shares
+# ---------------------------------------------------------------------------
+
+
+class TickInputs(NamedTuple):
+    """The kernels' inputs, as the prolog builds them."""
+
+    d: torch.Tensor              # [J, N, R, S] f32 contiguous
+    wmin: torch.Tensor | None    # [J, N, S] cross-rank min (sync stages)
+    bd: torch.Tensor             # frontier baseline, view of [J, N, R, S]
+    bw: torch.Tensor             # what-if/regime baseline, view
+    amax: torch.Tensor           # [J, N, S] what-if boundary stats
+    second: torch.Tensor
+    leader: torch.Tensor         # i32
+    relprev: torch.Tensor
+    thr: torch.Tensor | None     # [J, R, S] activity threshold
+    host: torch.Tensor | None    # [J, R] i32 rank -> host
+    sync: torch.Tensor           # [S] u8, 1 on barrier-bearing stages
+    sync_stages: tuple[int, ...]
+    num_hosts: int
+    with_regimes: bool
+
+
+def tick_inputs(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    host_index=None,
+    num_hosts: int = 0,
+    with_regimes: bool = True,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> TickInputs:
+    """Validate the arguments of a tick route and run its prolog: the
+    sync-imputed work's [J, N, S] cross-rank minimum, the per-job median
+    baselines (zero-stride views of [J, S] rows), the what-if boundary
+    stats rows and, with regimes or hosts, the activity threshold.
+
+    `device` None keeps a tensor where it lies and puts anything else
+    (a NumPy array) on CUDA; pass ``device="cpu"`` for the CPU.
+    """
+    if device is None:
+        device = d.device if isinstance(d, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the tick kernels: CUDA was asked for but is not available "
+            "(pass device='cpu' to run their plain versions on the CPU)"
+        )
+    if isinstance(d, np.ndarray):
+        d = torch.from_numpy(np.ascontiguousarray(d))
+    # subnormal inputs read as zero, as on a flush-to-zero unit
+    d = ftz(torch.as_tensor(d).to(device=device, dtype=torch.float32)).contiguous()
+    if d.dim() != 4:
+        raise ValueError(f"d must be [J, N, R, S], got {tuple(d.shape)}")
+    jn, n, r, s = d.shape
+    sync_stages = tuple(sorted({int(i) for i in (sync_stages or ())}))
+    sync_segments(sync_stages, s)  # validates the stage indices
+    host = None
+    if host_index is not None:
+        if num_hosts <= 0:
+            raise ValueError("host_index requires num_hosts >= 1")
+        host = torch.as_tensor(host_index, dtype=torch.int32, device=device)
+        if tuple(host.shape) != (jn, r):
+            raise ValueError(
+                f"host_index must be [J, R]={jn, r}, got {tuple(host.shape)}"
+            )
+        host = host.contiguous()
+
+    # The frontier family clips against the cohort median of the RAW
+    # durations, the what-if and regime families against the median of
+    # the sync-imputed work; an explicit baseline serves both, and must
+    # be constant over the steps when the regime or host family is on
+    # (their threshold is per cell).
+    need_jrs = with_regimes or host is not None
+    wmin = d.amin(dim=2) if sync_stages else None          # [J, N, S]
+    w = imputed_work(d, sync_stages, wmin)
+    if baseline is None:
+        med_d = fleet_median_baseline(d)                   # [J, S]
+        med_w = fleet_median_baseline(w) if sync_stages else med_d
+        bd = med_d[:, None, None, :].expand(d.shape)
+        bw = med_w[:, None, None, :].expand(d.shape)
+    else:
+        b = ftz(torch.as_tensor(baseline, dtype=torch.float32, device=device))
+        if need_jrs and b.dim() >= 3 and b.shape[-3] != 1:
+            raise ValueError(
+                "with regimes or hosts the baseline is a per-cell reference: "
+                f"it must be constant over the steps, got {tuple(b.shape)}"
+            )
+        bd = bw = b.broadcast_to(d.shape)
+    amax, second, leader, relprev = whatif_stats(w, sync_stages)
+    # the sync set as one byte per stage, for the kernels that walk stages
+    sync = torch.zeros(s, dtype=torch.uint8)
+    sync[list(sync_stages)] = 1
+    thr = None
+    if need_jrs:
+        thr = ftz(torch.clamp_min(
+            ftz(float(rel_excess) * bw[:, 0]), float(min_excess_s)
+        )).contiguous()
+    return TickInputs(
+        d, wmin, bd, bw, amax, second, leader, relprev, thr, host,
+        sync.to(device), sync_stages, int(num_hosts) if host is not None else 0,
+        bool(with_regimes),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the epilogs every route shares
+# ---------------------------------------------------------------------------
+
+
+def frontier_packet(f, lead, sec, clip) -> FleetPacket:
+    """[J, N, S] frontier accumulators -> `FleetPacket`."""
+    advances = ftz(torch.diff(f, dim=2, prepend=torch.zeros_like(f[:, :, :1])))
+    gap = ftz(f - sec)                           # sec = -inf when R == 1
+    exposed = f[:, :, -1]                        # [J, N]
+    denom = torch.clamp_min(ftz(exposed.sum(dim=1)), 1e-30)
+    shares = ftz(ftz(advances.sum(dim=1)) / denom[:, None])
+    gains = ftz(
+        torch.clamp_min(ftz(ftz(exposed[:, :, None] - clip).sum(dim=1)), 0.0)
+        / denom[:, None]
+    )
+    return FleetPacket(f, advances, lead, gap, exposed, shares, gains)
+
+
+def regime_packet(count, onset, last, runs, streak, sum_e, sum_pfx, *, n):
+    """[J, S, R] regime accumulators of an n-step window ->
+    `FleetRegimePacket`: onset BIG -> -1, and the derived duty and
+    trend slope."""
+    onset = torch.where(onset >= n, -1, onset).to(torch.int32)  # BIG -> never
+    span = torch.clamp_min(n - onset, 1).to(torch.float32)
+    duty = torch.where(onset >= 0, count.to(torch.float32) / span, 0.0)
+    if n >= 2:
+        # sum_t t*e = n*sum_e - C, so the least-squares numerator
+        # (sum_t (t - tbar) e) is (n - tbar)*sum_e - C
+        tbar = (n - 1) / 2.0
+        denom = n * (n * n - 1) / 12.0
+        slope = ftz(ftz(ftz((n - tbar) * sum_e) - sum_pfx) / denom)
+    else:
+        slope = torch.zeros_like(sum_e)
+    return FleetRegimePacket(
+        count, onset, last, runs, streak, sum_e, sum_pfx, duty, slope
+    )
+
+
+# ---------------------------------------------------------------------------
+# the single-family kernel routes (the four-dispatch reference path)
+# ---------------------------------------------------------------------------
+
+# The kernel wrappers (`frontier.py`) and the oracles (`ref.py`) build on
+# the helpers above, so each route imports them when it runs.
+
+
+def _one(x):
+    """The J = 1 stack of one window (or of its baseline)."""
+    return None if x is None else x[None]
+
+
+def fleet_frontier_window(d, baseline=None, *, device=None) -> FleetPacket:
+    """Frontier accounting of a stacked-jobs tensor d[J, N, R, S] in one
+    launch of the frontier kernel (`frontier.frontier_window_kernel`).
+
+    The baseline defaults to each job's own cohort median of d; jobs never
+    share a baseline.  `device` None keeps a tensor's device and puts an
+    array on CUDA.  On CUDA the hand-written kernel runs (or the call
+    raises); on the CPU its plain torch version does.
+    """
+    from .frontier import frontier_window_kernel
+
+    x = tick_inputs(d, baseline, with_regimes=False, device=device)
+    return frontier_packet(*frontier_window_kernel(x))
+
+
+def frontier_window(d, baseline=None, *, device=None) -> FrontierPacket:
+    """Frontier accounting of one window d[N, R, S]: the J = 1 squeeze of
+    `fleet_frontier_window`."""
+    p = fleet_frontier_window(_one(d), _one(baseline), device=device)
+    return FrontierPacket(*(f[0] for f in p))
+
+
+def fleet_frontier_loop(d, baseline=None, *, device=None) -> FleetPacket:
+    """Per-job loop over `frontier_window` (J launches): the baseline the
+    batched route is held against."""
+    packets = [
+        frontier_window(d[j], None if baseline is None else baseline[j],
+                        device=device)
+        for j in range(d.shape[0])
+    ]
+    return FleetPacket(*(torch.stack(col) for col in zip(*packets)))
+
+
+def frontier_window_reference(d, baseline=None, *, device=None) -> FrontierPacket:
+    """The same packet as `frontier_window` from the plain-torch oracle
+    `ref.frontier_window_ref` (for tests)."""
+    from .ref import frontier_window_ref
+
+    x = tick_inputs(_one(d), _one(baseline), with_regimes=False, device=device)
+    ref = frontier_window_ref(x.d[0], x.bd[0])
+    p = frontier_packet(
+        ref.frontier[None], ref.leader[None], ref.second[None], ref.clipped[None]
+    )
+    return FrontierPacket(*(f[0] for f in p))
+
+
+def fleet_whatif_matrix(
+    d, baseline=None, *, sync_stages: tuple[int, ...] | None = None, device=None
+) -> FleetWhatIfPacket:
+    """Per-job what-if matrices of a stacked tensor d[J, N, R, S] in one
+    launch of the what-if kernel (`frontier.whatif_matrix_kernel`).
+
+    Every (stage, rank) candidate is clipped to the baseline (default:
+    each job's cohort median of the sync-imputed work) and the step
+    makespan replayed under the declared sync model.  `sync_stages` must
+    be identical across the stacked jobs.  `exposed` is the per-step
+    makespan as the fused route computes it (`step_makespan`).
+    """
+    from .frontier import whatif_matrix_kernel
+
+    x = tick_inputs(
+        d, baseline, sync_stages=sync_stages, with_regimes=False, device=device
+    )
+    return FleetWhatIfPacket(whatif_matrix_kernel(x), step_makespan(x.d))
+
+
+def whatif_matrix(
+    d, baseline=None, *, sync_stages: tuple[int, ...] | None = None, device=None
+) -> WhatIfPacket:
+    """The [S, R] what-if matrix of one window d[N, R, S]: the J = 1
+    squeeze of `fleet_whatif_matrix`."""
+    p = fleet_whatif_matrix(
+        _one(d), _one(baseline), sync_stages=sync_stages, device=device
+    )
+    return WhatIfPacket(matrix=p.matrix[0], exposed=p.exposed[0])
+
+
+def _replay_exposed(w: torch.Tensor, segments) -> torch.Tensor:
+    """Per-step replayed makespan [N] of work w[N, R, S]."""
+    p = stage_prefix(w)
+    relbase = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+    for start, end in segments:
+        seg = ftz(p[:, :, end] - p[:, :, start - 1]) if start else p[:, :, end]
+        relbase = ftz(relbase[:, None] + seg).amax(dim=1)
+    return relbase
+
+
+def whatif_matrix_loop(
+    d, baseline=None, *, sync_stages: tuple[int, ...] | None = None, device=None
+) -> torch.Tensor:
+    """Per-candidate counterfactual loop: one full sync replay per (stage,
+    rank), O(S*R) passes over the window.  The route the batched kernel is
+    held against; for tests only, never to serve.  Returns [S, R]."""
+    x = tick_inputs(
+        _one(d), _one(baseline), sync_stages=sync_stages, with_regimes=False,
+        device=device,
+    )
+    w = imputed_work(x.d, x.sync_stages, x.wmin)[0]
+    b = x.bw[0]
+    n, r, s = w.shape
+    segments = sync_segments(x.sync_stages, s)
+    base = _replay_exposed(w, segments).sum()
+    out = torch.empty((s, r), dtype=torch.float32, device=w.device)
+    for si in range(s):
+        for ri in range(r):
+            repl = w.clone()
+            repl[:, ri, si] = torch.minimum(w[:, ri, si], b[:, ri, si])
+            out[si, ri] = base - _replay_exposed(repl, segments).sum()
+    return out
+
+
+def fleet_regime_stats(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> FleetRegimePacket:
+    """Per-job regime statistics of a stacked tensor d[J, N, R, S] in one
+    launch of the regime kernel (`frontier.regime_stats_kernel`).
+
+    `baseline` is the per-cell reference ([J, R, S], or broadcastable); it
+    defaults to each job's cohort median of the sync-imputed work.  The
+    activity threshold is max(min_excess_s, rel_excess * baseline).
+    """
+    from .frontier import regime_stats_kernel
+
+    if baseline is not None:
+        jn, _, r, s = np.shape(d)
+        baseline = torch.as_tensor(baseline, dtype=torch.float32).broadcast_to(
+            (jn, r, s)
+        )[:, None]                                  # constant over steps
+    x = tick_inputs(
+        d, baseline, sync_stages=sync_stages, with_regimes=True,
+        min_excess_s=min_excess_s, rel_excess=rel_excess, device=device,
+    )
+    return regime_packet(*regime_stats_kernel(x), n=x.d.shape[1])
+
+
+def regime_stats_window(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> RegimePacket:
+    """Regime statistics of one window d[N, R, S]: the J = 1 squeeze of
+    `fleet_regime_stats`."""
+    p = fleet_regime_stats(
+        _one(d), _one(baseline), sync_stages=sync_stages,
+        min_excess_s=min_excess_s, rel_excess=rel_excess, device=device,
+    )
+    return RegimePacket(*(f[0] for f in p))
+
+
+def regime_stats_loop(
+    d,
+    baseline=None,
+    *,
+    sync_stages: tuple[int, ...] | None = None,
+    min_excess_s: float = _REGIME_DEFAULTS.min_excess_s,
+    rel_excess: float = _REGIME_DEFAULTS.rel_excess,
+    device=None,
+) -> FleetRegimePacket:
+    """Per-job loop over `regime_stats_window` (J launches): the baseline
+    the batched route is held against."""
+    packets = [
+        regime_stats_window(
+            d[j], None if baseline is None else baseline[j],
+            sync_stages=sync_stages, min_excess_s=min_excess_s,
+            rel_excess=rel_excess, device=device,
+        )
+        for j in range(d.shape[0])
+    ]
+    return FleetRegimePacket(*(torch.stack(col) for col in zip(*packets)))

@@ -1,1 +1,1 @@
-"""Launchers: the fleet serving driver."""
+"""Launchers: the fleet serving driver and the trace replay driver."""

@@ -1,13 +1,16 @@
 """The PyTorch port's fleet service against the reference, on CPU.
 
 `repro.launch.serve_fleet.run` and `repro_torch.launch.serve_fleet.run`
-(`--device cpu`: the tick kernel's plain torch version) serve the same
-simulated fleet.  Their routes must name the same (job, stage, rank,
+(`--device cpu`: the tick kernels' plain torch versions) serve the same
+simulated fleet, through the fused tick and through the four-dispatch
+reference route (`FleetService(fused=False)`).  Their routes must name the same (job, stage, rank,
 regime) with `recoverable_s` within rtol 1e-4, and their snapshots must
 agree apart from the wall-clock `obs` section.
 """
 import argparse
+import functools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +20,7 @@ from repro_torch.fleet import FleetService  # noqa: E402
 from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import fused  # noqa: E402
 from repro_torch.launch import serve_fleet as port_serve  # noqa: E402
+from repro_torch.telemetry.packets import EvidencePacket  # noqa: E402
 
 ARGV = ["--jobs", "6", "--ranks", "8", "--window", "20", "--rounds", "3"]
 RTOL = 1e-4
@@ -114,11 +118,77 @@ class TestIncidentTier:
         assert "incidents" not in port and "escalations" not in port
 
 
-class TestNotYetPorted:
-    def test_four_dispatch_route_raises(self):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            FleetService(device="cpu", fused=False)
+def _packet(seed, cls=EvidencePacket, stages=("s0", "s1", "s2"), steps=6,
+            ranks=5):
+    rng = np.random.default_rng(seed)
+    return cls(
+        window_index=0, schema_hash="h", stages=stages, steps=steps,
+        world_size=ranks, gather_ok=True, labels=(), routing_stages=stages[:1],
+        shares=(1.0,) + (0.0,) * (len(stages) - 1),
+        gains=(0.0,) * len(stages), co_critical_stages=(),
+        downgrade_reasons=(), leader_rank=0, exposed_total=1.0,
+        window=rng.exponential(0.02, size=(steps, ranks, len(stages))),
+        sync_stages=stages[1:2],
+    )
 
+
+def _refreshed(service, fused=None, cls=EvidencePacket):
+    """Submit three jobs' packets and refresh; returns the jobs by id."""
+    service.submit_many([(f"j{i}", _packet(i, cls)) for i in range(3)])
+    service.refresh_batched(fused=fused)
+    return {j.job_id: j for j in service.registry.jobs()}
+
+
+class TestFourDispatchRoute:
+    """`FleetService(fused=False)`: the four-dispatch reference route,
+    against the JAX package's and against the port's fused route."""
+
+    @pytest.fixture(scope="class")
+    def four_dispatch_runs(self):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ref_serve, "FleetService",
+                       functools.partial(ref_serve.FleetService, fused=False))
+            mp.setattr(port_serve, "FleetService",
+                       functools.partial(FleetService, fused=False))
+            return _runs()
+
+    def test_four_dispatch_route_serves_as_the_fused_route(
+        self, four_dispatch_runs, default_runs
+    ):
+        ref, port = four_dispatch_runs
+        _assert_routes_agree(ref, port)
+        assert port["snapshot"] == ref["snapshot"]
+        # the port's two routes: identical answers
+        assert port["routing"] == default_runs[1]["routing"]
+        assert port["snapshot"] == default_runs[1]["snapshot"]
+
+    def test_service_flag(self):
+        assert FleetService(device="cpu", fused=False).fused is False
+        assert FleetService(device="cpu").fused is True
+
+    def test_refresh_batched_route_argument(self):
+        """`refresh_batched(fused=False)` on a fused service equals its
+        fused refresh bit for bit, and the reference's four-dispatch
+        refresh within the service tolerance."""
+        from repro.fleet import FleetService as RefService
+        from repro.telemetry.packets import EvidencePacket as RefPacket
+
+        four = _refreshed(FleetService(device="cpu"), fused=False)
+        one = _refreshed(FleetService(device="cpu", fused=False), fused=True)
+        ref = _refreshed(RefService(), fused=False, cls=RefPacket)
+        assert sorted(four) == sorted(one) == sorted(ref) == ["j0", "j1", "j2"]
+        for job_id, job in four.items():
+            np.testing.assert_array_equal(job.whatif, one[job_id].whatif)
+            np.testing.assert_array_equal(job.kernel_shares, one[job_id].kernel_shares)
+            np.testing.assert_array_equal(job.kernel_gains, one[job_id].kernel_gains)
+            assert job.kernel_leader == one[job_id].kernel_leader == ref[job_id].kernel_leader
+            np.testing.assert_allclose(job.whatif, ref[job_id].whatif, rtol=RTOL, atol=1e-7)
+            np.testing.assert_allclose(
+                job.kernel_shares, ref[job_id].kernel_shares, rtol=RTOL, atol=1e-7
+            )
+
+
+class TestNotYetPorted:
     def test_shards_raise(self):
         args = argparse.Namespace(topology="none", shards=2)
         with pytest.raises(NotImplementedError, match="slice 3"):

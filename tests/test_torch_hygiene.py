@@ -17,9 +17,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.fleet import FleetService  # noqa: E402
 from repro_torch.incidents import IncidentEngine  # noqa: E402
-from repro_torch.kernels.frontier import fused  # noqa: E402
+from repro_torch.kernels.frontier import _lib, fused  # noqa: E402
+from repro_torch.kernels.frontier import frontier as kernels  # noqa: E402
 from repro_torch.kernels.frontier import incidents as coactivation  # noqa: E402
-from repro_torch.launch import serve_fleet  # noqa: E402
+from repro_torch.launch import replay, serve_fleet  # noqa: E402
+from repro_torch.replay import generate_trace, parse_trace, replay_trace  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -64,7 +66,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.kernels.frontier.incidents",
                  "repro_torch.incidents", "repro_torch.incidents.engine",
                  "repro_torch.incidents.escalation",
-                 "repro_torch.incidents.topology"):
+                 "repro_torch.incidents.topology",
+                 "repro_torch.kernels.frontier.frontier",
+                 "repro_torch.kernels.frontier.ref",
+                 "repro_torch.replay", "repro_torch.replay.engine",
+                 "repro_torch.replay.trace", "repro_torch.launch.replay"):
         assert name in out["modules"]
 
 
@@ -109,6 +115,54 @@ def test_cpu_path_leaves_launches_at_zero(monkeypatch):
     assert service.device.type == "cpu"
     fused.fused_fleet_tick(torch.rand(2, 3, 4, 5), device="cpu")
     assert fused.launches == 0
+
+
+def test_replay_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trace = parse_trace(generate_trace(jobs=2, ticks=2, world_size=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_trace(trace)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_trace(trace, device="cuda", fused=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.run(replay.make_argparser().parse_args(
+            ["--synth", "--jobs", "2", "--ticks", "2", "--device", "cuda"]
+        ))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.four_dispatch_tick(torch.ones(1, 2, 3, 4).numpy())
+
+
+def test_cpu_four_dispatch_leaves_every_launch_count_at_zero(monkeypatch):
+    monkeypatch.setattr(kernels, "launches", dict.fromkeys(kernels.launches, 0))
+    monkeypatch.setattr(coactivation, "launches", 0)
+    monkeypatch.setattr(fused, "launches", 0)
+    d = torch.rand(2, 3, 4, 6)
+    fused.four_dispatch_tick(d, sync_stages=(2,), host_index=torch.zeros(2, 4),
+                             num_hosts=1, device="cpu")
+    out = replay.run(replay.make_argparser().parse_args(
+        ["--synth", "--jobs", "4", "--ticks", "3", "--ranks", "4",
+         "--window", "5", "--incidents", "--shared-switch",
+         "--tick-path", "four-dispatch", "--device", "cpu"]
+    ))
+    assert out["windows_replayed"] > 0
+    assert set(kernels.launches.values()) == {0}
+    assert coactivation.launches == 0
+    assert fused.launches == 0
+
+
+def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a header under csrc/ must key a new library: a stale
+    one would otherwise load."""
+    real = _lib.kernel_source("fused_tick.cu").parent
+    assert (real / "frontier_common.cuh").is_file()
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("constexpr int kA = 1;\n")
+    monkeypatch.setattr(_lib, "_CSRC", tmp_path)
+    monkeypatch.setattr(_lib, "build_dir", lambda: tmp_path / "build")
+    before = _lib._library_path(tmp_path / "k.cu")
+    header.write_text("constexpr int kA = 2;\n")
+    assert _lib._library_path(tmp_path / "k.cu") != before
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
