@@ -10,21 +10,23 @@ package — in these phases, and exits non-zero if any fails:
   build    compiles the five CUDA sources of `csrc/` (`fused_tick.cu`,
            `coactivation.cu`, `frontier_window.cu`, `whatif_matrix.cu`,
            `regime_stats.cu`) with nvcc from the checkout, all at once,
-           and prints what ptxas says of their registers and spills;
+           prints what ptxas says of their registers, shared memory and
+           spills, and fails on any spill;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
-           group shapes, the larger service shape, edge shapes, the
-           accumulation-expanded 18/27/33-stage schemas, a window fed
-           values around FLT_MIN, and a fleet-scale shape: integer fields
-           exact, float fields within rtol 1e-5 / atol 1e-6 (bit for bit
-           on the FLT_MIN case); times both with CUDA events (L2 flushed
-           before every launch) beside the byte bound at 3.35 TB/s, and
-           the whole `fused_fleet_tick` call (prolog + kernel + epilog)
-           on the host clock.  At every case it also holds the frontier,
-           what-if and regime kernels (the four-dispatch route) against
-           their plain versions, bit for bit, times them the same way, and
-           holds `four_dispatch_tick` against `fused_fleet_tick` on the
-           card, bit for bit on every field of every family;
+           group shapes, the larger service shape, edge shapes (one step,
+           a step count no multiple of the frontier role's step chunk,
+           R*S no multiple of 128 with the last stage synced, one rank,
+           an explicit [R, S] baseline), the accumulation-expanded 18/27/33-stage
+           schemas, a window fed values around FLT_MIN, and a fleet-scale
+           shape: bit for bit on every field; times both with CUDA events
+           (L2 flushed before every launch) beside the byte bound at 3.35
+           TB/s, and the whole `fused_fleet_tick` call (prolog + kernel +
+           epilog) on the host clock.  At every case it also holds the
+           frontier, what-if and regime kernels (the four-dispatch route)
+           against their plain versions, bit for bit, times them the same
+           way, and holds `four_dispatch_tick` against `fused_fleet_tick`
+           on the card, bit for bit on every field of every family;
   fabric   runs `serve_fleet --topology fabric` at 64 jobs x 128 ranks x
            100-step windows for 3 rounds on the card, with both launch
            counts reset just before, and checks that both kernels ran,
@@ -52,11 +54,13 @@ package — in these phases, and exits non-zero if any fails:
            on the shared uplink; the same run with `--tick-path fused`
            gives the same report outside its wall-clock fields; prints
            both runs' phase split;
-  groups   the inputs the tick and replay runs handed each single-family
-           kernel, recorded at each (shape, sync set): there each kernel
-           is held against its plain version bit for bit and timed; the
-           `kernels` line takes the frontier and what-if times from the
-           replay's largest group, the regime times from the tick's;
+  groups   the inputs the fabric, service and fused replay runs handed
+           the fused kernel and the tick and four-dispatch replay runs
+           handed each single-family kernel, recorded at each (shape, sync
+           set, families): there each kernel is held against its plain
+           version bit for bit and timed; the `kernels` line takes the
+           frontier and what-if times from the replay's largest group, the
+           regime times from the tick's;
   profile  the service and fabric runs once more under torch.profiler:
            device busy time by kernel against the service's tick time.
 
@@ -70,6 +74,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +173,25 @@ def kernel_cases():
         ("edge", (2, 5, 300, 6), dict(sync_stages=DDP, hosts=3)),
         ("edge, no sync", (2, 5, 300, 6), dict(sync_stages=None)),
         ("edge, 10 stages", (4, 7, 200, 10), dict(sync_stages=(3, 9), hosts=5)),
+        # the two roles' thread mappings at their tails: one step; 9 and 7
+        # steps, no multiple of the frontier role's 2-step chunk; R*S = 910
+        # and 2,340, no multiple of 128, the last stage synced; one rank in
+        # each of several jobs
+        ("edge, one step", (3, 1, 130, 7), dict(sync_stages=(2, 6), hosts=4)),
+        ("edge, one step, no sync", (2, 1, 9, 6), dict(sync_stages=None)),
+        ("edge, 9 steps, R*S = 910, last stage synced", (3, 9, 130, 7),
+         dict(sync_stages=(2, 6), hosts=4)),
+        ("edge, 7 steps, 18 stages, R*S = 2340, last stage synced",
+         (3, 7, 130, 18), dict(sync_stages=(2, 5, 8, 11, 14, 17), hosts=4)),
+        ("edge, one rank, 5 jobs", (5, 12, 1, 6), dict(sync_stages=DDP, hosts=1)),
+        ("edge, one rank, 5 jobs, service call", (5, 12, 1, 6),
+         dict(sync_stages=DDP, with_regimes=False)),
+        # an explicit [R, S] baseline: the cell walks read it through
+        # rank and stage strides, not as the prolog's broadcast medians
+        ("edge, explicit baseline", (3, 11, 70, 6),
+         dict(sync_stages=DDP, hosts=4, baseline=True)),
+        ("edge, explicit baseline, 34 stages", (2, 11, 40, 34),
+         dict(sync_stages=(5, 20, 33), hosts=4, baseline=True)),
         *many_stage_cases(),
         ("FLT_MIN-fed window", (4, 20, 130, 6),
          dict(sync_stages=(1, 4), hosts=5, tiny=(2e-38, 1e-39),
@@ -205,10 +229,10 @@ def flat_fields(acc):
     return out
 
 
-def compare(got, want, torch, *, bitwise=False):
-    """Ints exact, floats close (bit for bit with `bitwise`); returns the
-    largest finite abs error and whether every float field is bit-equal."""
-    worst, same_bits = 0.0, True
+def compare(got, want, torch):
+    """Ints exact, floats close and then bit for bit; returns the largest
+    finite abs error."""
+    worst = 0.0
     for (name, g), (_, w) in zip(flat_fields(got), flat_fields(want)):
         if (g is None) != (w is None):
             raise AssertionError(f"{name}: presence differs")
@@ -216,10 +240,8 @@ def compare(got, want, torch, *, bitwise=False):
             continue
         if g.dtype.is_floating_point:
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6, msg=name)
-            equal = torch.equal(g.view(torch.int32), w.view(torch.int32))
-            if bitwise and not equal:
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(f"{name}: float bits differ")
-            same_bits = same_bits and equal
             fin = torch.isfinite(w)
             if fin.any():
                 worst = max(worst, (g[fin] - w[fin]).abs().max().item())
@@ -227,7 +249,7 @@ def compare(got, want, torch, *, bitwise=False):
             raise AssertionError(
                 f"{name}: {(g != w).sum().item()} integer entries differ"
             )
-    return worst, same_bits
+    return worst
 
 
 def nbytes(inputs, outputs) -> int:
@@ -338,26 +360,37 @@ def family_case(torch, kernels, name, x, flush) -> dict:
 
 
 @contextlib.contextmanager
-def recording(kernels, groups):
-    """While open, each single-family CUDA wrapper keeps in
+def recording(module, wrappers, groups):
+    """While open, each CUDA wrapper `wrappers[name]` of `module` keeps in
     `groups[name]` the inputs of its first launch at each (shape, sync
-    stages); the launches themselves are unchanged."""
-    saved = {name: getattr(kernels, cuda) for name, (cuda, _) in WRAPPERS.items()}
+    stages, families); the launches themselves are unchanged."""
+    saved = {name: getattr(module, cuda) for name, cuda in wrappers.items()}
 
     def wrap(name, launch):
         def recorded(x):
-            key = (tuple(x.d.shape), x.sync_stages)
+            key = (tuple(x.d.shape), x.sync_stages, x.with_regimes,
+                   x.host is not None)
             groups.setdefault(name, {}).setdefault(key, x)
             return launch(x)
         return recorded
 
-    for name, (cuda, _) in WRAPPERS.items():
-        setattr(kernels, cuda, wrap(name, saved[name]))
+    for name, cuda in wrappers.items():
+        setattr(module, cuda, wrap(name, saved[name]))
     try:
         yield groups
     finally:
-        for name, (cuda, _) in WRAPPERS.items():
-            setattr(kernels, cuda, saved[name])
+        for name, cuda in wrappers.items():
+            setattr(module, cuda, saved[name])
+
+
+def recording_families(kernels, groups):
+    """`recording` of the four-dispatch route's single-family wrappers."""
+    return recording(kernels, {n: c for n, (c, _) in WRAPPERS.items()}, groups)
+
+
+def recording_fused(fused, groups):
+    """`recording` of the fused tick's CUDA wrapper."""
+    return recording(fused, {"fused_tick": "_fused_tick_cuda"}, groups)
 
 
 def group_phase(torch, kernels, label, groups, flush) -> dict:
@@ -370,6 +403,37 @@ def group_phase(torch, kernels, label, groups, flush) -> dict:
             out.setdefault(name, []).append(row)
             print(f"{label} group {name} " + json.dumps(row), flush=True)
     return out
+
+
+def fused_group_phase(torch, fused, label, groups, flush) -> list:
+    """The fused kernel against its plain version, bit for bit, at every
+    group a main-path run handed it: case rows."""
+    rows = []
+    for x in groups.get("fused_tick", {}).values():
+        row = dict(shape=list(x.d.shape), sync=list(x.sync_stages),
+                   regimes=x.with_regimes, hosts=x.num_hosts,
+                   **fused_case(torch, fused, x, flush)[1])
+        rows.append(row)
+        print(f"{label} group fused_tick " + json.dumps(row), flush=True)
+    return rows
+
+
+def fused_case(torch, fused, x, flush):
+    """The fused kernel against its plain version on the same card
+    tensors, bit for bit; timed beside its byte bound.  Returns (the
+    kernel's and the plain version's accumulators, the measurements)."""
+    got = fused._fused_tick_cuda(x)
+    torch.cuda.synchronize()
+    want = fused._fused_tick_plain(x)
+    err = compare(got, want, torch)
+    ms = time_ms(lambda: fused._fused_tick_cuda(x), 20, torch, flush)
+    plain_ms = time_ms(lambda: fused._fused_tick_plain(x), 3, torch, flush)
+    moved = bytes_moved(x, got)
+    bound_ms, bound_by = bound(moved, OPS_PER_ELEMENT, x.d.numel())
+    return (got, want), dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+    )
 
 
 def four_dispatch_case(torch, fused, kernels, x, kw, flush):
@@ -446,11 +510,10 @@ def kernel_phase(torch, np, fused, kernels, flush):
         if hosts:
             kw["host_index"] = rng.integers(0, hosts, (shape[0], shape[2]))
             kw["num_hosts"] = hosts
+        if kw.get("baseline"):
+            kw["baseline"] = rng.exponential(0.03, shape[2:]).astype(np.float32)
         x = fused.tick_inputs(torch.from_numpy(d).cuda(), **kw)
-        got = fused._fused_tick_cuda(x)
-        torch.cuda.synchronize()
-        want = fused._fused_tick_plain(x)
-        err, same_bits = compare(got, want, torch, bitwise=tiny is not None)
+        (got, want), measured = fused_case(torch, fused, x, flush)
         pg, pw = fused._epilog(x, got), fused._epilog(x, want)
         for fam in ("frontier", "whatif", "regimes", "coact"):
             a, b = getattr(pg, fam), getattr(pw, fam)
@@ -463,22 +526,16 @@ def kernel_phase(torch, np, fused, kernels, flush):
                     )
                 elif not torch.equal(u, v):
                     raise AssertionError(f"{fam}.{name} differs")
-        ms = time_ms(lambda: fused._fused_tick_cuda(x), 20, torch, flush)
-        plain_ms = time_ms(lambda: fused._fused_tick_plain(x), 3, torch, flush)
         # the whole public call (prolog + kernel + epilog) from a CUDA tensor
         d_cuda = x.d
         tick_ms = wall_ms(
             lambda: fused.fused_fleet_tick(d_cuda, **kw), 5, torch
         )
-        moved = bytes_moved(x, got)
-        bound_ms, bound_by = bound(moved, OPS_PER_ELEMENT, x.d.numel())
         row = dict(
             label=label, shape=list(shape),
             sync=list(kw.get("sync_stages") or ()),
             regimes=bool(kw.get("with_regimes", True)), hosts=hosts,
-            max_abs_err=err, bitwise=same_bits,
-            ms=ms, plain_ms=plain_ms, tick_ms=tick_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+            **measured, tick_ms=tick_ms,
             four_dispatch=four_dispatch_case(torch, fused, kernels, x, kw, flush),
         )
         rows.append(row)
@@ -545,11 +602,11 @@ def fabric_phase(fused, kernels, coact, serve_fleet):
     groups = []
     launch = coact._co_activation_cuda
 
-    def recording(a):
+    def record(a):
         groups.append(a.clone())
         return launch(a)
 
-    coact._co_activation_cuda = recording
+    coact._co_activation_cuda = record
     reset_launches(fused, kernels, coact)
     try:
         out, wall = serve(serve_fleet, FABRIC_ARGS + ["--device", "cuda"])
@@ -705,7 +762,7 @@ def tick_phase(torch, np, fused, kernels, coact):
     groups = {}
     reset_launches(fused, kernels, coact)
     t0 = time.perf_counter()
-    with recording(kernels, groups):
+    with recording_families(kernels, groups):
         four = fused.four_dispatch_tick(d, **kw)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -733,19 +790,21 @@ def replay_report(out) -> dict:
     return {k: v for k, v in out.items() if k not in REPLAY_VOLATILE}
 
 
-def replay_phase(fused, kernels, coact, replay):
+def replay_phase(fused, kernels, coact, replay, fused_groups):
     """The replay driver's four-dispatch route on the card: its kernels
     launch (the fused one never), one switch-tier incident forms on the
     shared uplink, and the fused route's report is the same outside the
     wall-clock fields.  Returns the four-dispatch run's launch counts and
-    the groups (inputs at each shape and sync set) its kernels were
-    handed."""
+    the groups (inputs at each shape, sync set and families) its kernels
+    were handed; the fused run's groups go into `fused_groups`."""
     runs, groups = {}, {}
     for path in ("four-dispatch", "fused"):
         argv = REPLAY_ARGS + ["--tick-path", path, "--device", "cuda"]
         reset_launches(fused, kernels, coact)
         t0 = time.perf_counter()
-        with recording(kernels, groups if path == "four-dispatch" else {}):
+        record = (recording_families(kernels, groups) if path == "four-dispatch"
+                  else recording_fused(fused, fused_groups))
+        with record:
             out = replay.run(replay.make_argparser().parse_args(argv))
         runs[path] = (out, time.perf_counter() - t0,
                       read_launches(fused, kernels, coact))
@@ -772,7 +831,7 @@ def replay_phase(fused, kernels, coact, replay):
         launches=launches, fused_launches=one_launches,
         wall_s=four_wall, fused_wall_s=one_wall,
         windows_replayed=four["windows_replayed"],
-        groups={name: [[list(shape), list(sync)] for shape, sync in by_key]
+        groups={name: [[list(shape), list(sync)] for shape, sync, *_ in by_key]
                 for name, by_key in groups.items()},
         accuracy_top2=four["accuracy_top2"],
         fleet_incident=fleet[0], incidents=len(four["incidents"]),
@@ -862,19 +921,30 @@ def main() -> int:
         libs = list(pool.map(_lib.build, sources))
     print(f"build {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    spills = []
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("ptxas " + line.strip(), flush=True)
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                spills.append(f"{lib.name}: {line.strip()}")
+    if spills:
+        fail(f"ptxas spills: {spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
     rows = kernel_phase(torch, np, fused, kernels, flush)
-    coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
+    fused_groups = {}
+    with recording_fused(fused, fused_groups):
+        coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
     coact_rows = coact_phase(torch, np, coact, groups, flush)
-    launches = service_phase(fused, kernels, coact, serve_fleet)
+    with recording_fused(fused, fused_groups):
+        launches = service_phase(fused, kernels, coact, serve_fleet)
     tick_launches, tick_groups = tick_phase(torch, np, fused, kernels, coact)
-    replay_launches, replay_groups = replay_phase(fused, kernels, coact, replay)
-    # each single-family kernel at the inputs its main path handed it
+    replay_launches, replay_groups = replay_phase(
+        fused, kernels, coact, replay, fused_groups
+    )
+    # each kernel at the inputs its main path handed it
+    fused_rows = fused_group_phase(torch, fused, "main-path", fused_groups, flush)
     tick_rows = group_phase(torch, kernels, "tick", tick_groups, flush)
     replay_rows = group_phase(torch, kernels, "replay", replay_groups, flush)
     case_rows = {name: [r["four_dispatch"][name] for r in rows]
@@ -884,7 +954,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         # the service's own DDP group shape; the fabric run's first group
-        kernel_row("fused_tick", launches, rows, rows[0]),
+        kernel_row("fused_tick", launches, rows + fused_rows, rows[0]),
         kernel_row("coactivation", coact_launches, coact_rows, coact_rows[0]),
         # the frontier and what-if kernels: the four-dispatch replay's
         # launches, times at its largest group; the regime kernel: the

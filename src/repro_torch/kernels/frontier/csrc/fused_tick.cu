@@ -1,5 +1,5 @@
 // The fused fleet tick: every per-tick accumulator family of a stacked
-// window tensor d[J, N, R, S] from one read of the window.
+// window tensor d[J, N, R, S] in one call.
 //
 // Replaces the Pallas TPU kernel `_fused_tick_kernel`
 // (src/repro/kernels/frontier/fused.py, reached through
@@ -19,36 +19,52 @@
 //   hosts      per (job, step, stage, host): active-rank counts (integer
 //              atomics, exact in any order).
 //
-// Bound.  About S floating-point operations per float loaded: the kernel
-// is bound by device-memory bytes.  It reads d once (J*N*R*S*4 bytes);
-// the imputed work w differs from d only on sync stages, where it is the
-// per-step cross-rank minimum, so w arrives as a [J, N, S] row and never
-// as a second window.  Baselines arrive as strided views ([J, S] medians
-// broadcast with zero strides), never materialized at window size.
+// Bound.  About S floating-point operations per float loaded: the call is
+// bound by device-memory bytes, one read of d (J*N*R*S*4 bytes) and of the
+// prolog's rows plus one write of the outputs.  The imputed work w differs
+// from d only on sync stages, where it is the per-step cross-rank minimum,
+// so w arrives as a [J, N, S] row and never as a second window.
+// Baselines arrive as strided views ([J, S] medians broadcast with zero
+// strides), never materialized at window size.
 //
-// Design.  Grid (J, ceil(R / 128)), 128 threads, one thread per rank of
-// the tile in the natural [J, N, R, S] layout (a warp's loads of one
-// step are one contiguous run of 32 * S floats).  Each thread walks the N
-// steps in order and keeps its S what-if and regime accumulators in
-// registers (S <= 16: arrays sized by the template constant MS = 8 or
-// 16), so every float sum is a sequential step-ordered add chain with no
-// multiply (nothing contracts to an FMA).  Past 16 stages the wide
-// variant takes any S: it keeps its accumulators in the [J, S, R] outputs
-// themselves (each thread reads and writes its own cells, coalesced over
-// the warp's ranks, in step order), walks the stages as running prefixes
-// instead of per-stage arrays (past 16 stages the prefix takes the
-// reference's blocked add order, see `StagePrefix` in
-// frontier_common.cuh), and reduces the
-// frontier family 32 stages per round, so neither registers nor shared
-// memory grow with S.  The TPU kernel folds rank tiles into the
-// frontier outputs across its sequential grid; on this card blocks run in
-// no order, so each block reduces its tile with warp shuffles and writes
-// a per-tile partial, and a second kernel merges the partials in tile
-// order (ties keep the lower tile).  No float
-// atomics anywhere.  The what-if boundary statistics (amax, second,
-// leader, relprev rows) come from the caller's prolog, which builds the
-// arrivals with the same stage-ordered adds this kernel uses, so the
-// leader's zero-excess cell cancels exactly.
+// Design.  The TPU runs its grid in order and fuses the families to share
+// one read of the window on it; here blocks run side by side, so the
+// parallelism comes from what is independent.  Given the rows the torch
+// prolog computes (amax, second, leader, relprev, wmin, thr) the families
+// do not depend on one another, and the call runs them as two roles, each
+// a launch on the caller's stream:
+//
+//   cell role      one thread per (job, rank, stage) cell, walking the
+//                  steps in order with its what-if sum, regime statistics
+//                  and host in registers (`cell_walk.cuh`, which the
+//                  what-if kernel of the four-dispatch route runs too):
+//                  the only serial chain left is the one the sums need.
+//   frontier role  blocks of (job, chunk of kStepChunk steps, 128-rank
+//                  tile), one thread per rank.  No state crosses a step,
+//                  so the step axis spreads over the card.  Per step each
+//                  block reduces its tile with warp shuffles and a merge
+//                  across its 4 warps, with an explicit index tie-break
+//                  (equal values keep the lower rank), and writes a
+//                  per-tile partial [J, T, N, S]; a third launch merges
+//                  the partials in tile order when R > 128 (ties keep the
+//                  lower tile).  Up to 16 stages the summaries live in
+//                  register arrays (MS = 8 or 16); past that the block
+//                  reduces 32 stages per round with running prefixes in
+//                  `StagePrefix`'s blocked order, so nothing grows with S.
+//
+// The frontier role is launched with programmatic stream serialization
+// and the cell role's warp walk (S <= 32) releases it at once, so the two
+// share the card: the cell role's step chain leaves most SM slots free at
+// the service's sizes, and the frontier role fills them.  Past 32 stages
+// the slab walk does not release it (the overlap slowed it there), so the
+// frontier role starts when the walk ends.
+//
+// Every float sum is the step-ordered add chain the plain version takes,
+// with no multiply (nothing contracts to an FMA), and no float atomics
+// anywhere.  The cell role rebuilds each arrival with the prolog's adds,
+// so the leader's own arrival equals amax bit for bit and its zero-excess
+// cell cancels exactly.  Each role reads d; at the service's group size
+// (10 MB) the second read comes from L2.
 //
 // Subnormals: the library is built with -ftz=true, so every float
 // operand and result below FLT_MIN flushes to zero, as in the reference;
@@ -57,17 +73,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cell_walk.cuh"
 #include "frontier_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kStepChunk = 2;  // steps per frontier-role block
 
 struct Params {
   // inputs
   const float* d;      // [J, N, R, S] contiguous
-  const float* wmin;   // [J, N, S] cross-rank minimum (read on sync stages)
+  const float* wmin;   // [J, N, S] cross-rank minimum (d itself when no
+                       // stage is a sync stage)
   const float* bd;     // frontier baseline, strided view of [J, N, R, S]
   const float* bw;     // what-if / regime baseline, strided view
   const float* amax;   // [J, N, S] governing-boundary release
@@ -76,6 +95,7 @@ struct Params {
   const float* relp;   // [J, N, S] previous segment's release
   const float* thr;    // [J, R, S] activity threshold (regimes / hosts)
   const int* host;     // [J, R] rank -> host index (hosts)
+  const unsigned char* sync;  // [S], 1 on sync stages
   // frontier partials [J, T, N, S] (the outputs themselves when T == 1)
   float* pf;
   int* pl;
@@ -98,14 +118,16 @@ struct Params {
   long long bd_st[4];
   long long bw_st[4];
   int J, N, R, S, H, T;
-  unsigned sync_mask;  // the sync set as bits (S <= 16 variants)
-  const unsigned char* sync;  // the same set, 1 byte per stage (wide)
 };
 
-template <int MS, bool REG, bool HOSTS>
+// The frontier role up to MS stages: block (job * chunks + chunk, tile).
+template <int MS>
 __global__ void __launch_bounds__(kThreads)
-    fused_tick_kernel(const Params p) {
-  const int j = blockIdx.x;
+    frontier_role_kernel(const Params p) {
+  const int chunks = (p.N + kStepChunk - 1) / kStepChunk;
+  const int j = blockIdx.x / chunks;
+  const int n0 = (blockIdx.x - j * chunks) * kStepChunk;
+  const int n1 = min(p.N, n0 + kStepChunk);
   const int tile = blockIdx.y;
   const int r = tile * kThreads + threadIdx.x;
   const bool valid = r < p.R;
@@ -122,78 +144,24 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sm_c[2][kWarps][MS];
   __shared__ int sm_i[2][kWarps][MS];
 
-  // sync segmentation: stage s belongs to the segment ending at the first
-  // declared barrier at or after s, else at the last stage
-  bool is_sync[MS];
-#pragma unroll
-  for (int s = 0; s < MS; ++s) is_sync[s] = (p.sync_mask >> s) & 1u;
-
-  float thr[MS];
-  int host = -1;
-  if (REG || HOSTS) {
-#pragma unroll
-    for (int s = 0; s < MS; ++s)
-      thr[s] = (valid && s < S) ? p.thr[((long long)j * R + r) * S + s] : 0.f;
-  }
-  if (HOSTS && valid) {
-    host = p.host[(long long)j * R + r];
-    if (host < 0 || host >= p.H) host = -1;  // out of range: no host row
-  }
-
-  float wacc[MS];
-  int cnt[MS], ons[MS], lst[MS], rns[MS], stk[MS], prv[MS];
-  float se[MS], sp[MS];
-#pragma unroll
-  for (int s = 0; s < MS; ++s) {
-    wacc[s] = 0.f;
-    if (REG) {
-      cnt[s] = 0;
-      ons[s] = kBig;
-      lst[s] = -1;
-      rns[s] = 0;
-      stk[s] = 0;
-      prv[s] = 0;
-      se[s] = 0.f;
-      sp[s] = 0.f;
-    }
-  }
-
   const long long rr = valid ? r : 0;  // in-bounds address for idle lanes
-  for (int n = 0; n < N; ++n) {
+  for (int n = n0; n < n1; ++n) {
     const long long jn = (long long)j * N + n;
     const float* drow = p.d + (jn * R + rr) * S;
     const float* bdp = p.bd + j * p.bd_st[0] + n * p.bd_st[1] + rr * p.bd_st[2];
-    const float* bwp = p.bw + j * p.bw_st[0] + n * p.bw_st[1] + rr * p.bw_st[2];
-    const float* stat_amax = p.amax + jn * S;
-    const float* stat_sec = p.sec + jn * S;
-    const int* stat_lead = p.lead + jn * S;
-    const float* stat_relp = p.relp + jn * S;
 
-    float dv[MS], wv[MS], pd[MS], pw[MS];
+    float dv[MS], pd[MS];
 #pragma unroll
-    for (int s = 0; s < MS; ++s) {
-      if (s < S) {
-        dv[s] = drow[s];
-        wv[s] = is_sync[s] ? p.wmin[jn * S + s] : dv[s];
-      } else {
-        dv[s] = 0.f;
-        wv[s] = 0.f;
-      }
-    }
-    // stage prefixes: explicit stage-ordered adds (the prolog's order)
+    for (int s = 0; s < MS; ++s) dv[s] = s < S ? drow[s] : 0.f;
+    // stage prefix: explicit stage-ordered adds (the prolog's order)
     pd[0] = dv[0];
-    pw[0] = wv[0];
 #pragma unroll
-    for (int s = 1; s < MS; ++s) {
-      pd[s] = pd[s - 1] + dv[s];
-      pw[s] = pw[s - 1] + wv[s];
-    }
+    for (int s = 1; s < MS; ++s) pd[s] = pd[s - 1] + dv[s];
     float pd_final = pd[0];
 #pragma unroll
     for (int s = 1; s < MS; ++s)
       if (s == S - 1) pd_final = pd[s];
 
-    // -- frontier family: warp-shuffle reduction of the tile ---------------
     float m[MS], sc[MS], cl[MS];
     int ix[MS];
 #pragma unroll
@@ -253,86 +221,22 @@ __global__ void __launch_bounds__(kThreads)
       p.ps[o] = bs;
       p.pc[o] = bc;
     }
-
-    // -- what-if family (and the regime / host activity it shares) ---------
-    // arrival at each stage's governing boundary: relprev + segment prefix
-    float seg_end[MS];
-    {
-      float endp = pw[0];
-#pragma unroll
-      for (int s = MS - 1; s >= 0; --s) {
-        if (s < S && (is_sync[s] || s == S - 1)) endp = pw[s];
-        seg_end[s] = endp;
-      }
-    }
-    float base = 0.f;
-    bool has_base = false;
-#pragma unroll
-    for (int s = 0; s < MS; ++s) {
-      if (s < S) {
-        const float seg = has_base ? seg_end[s] - base : seg_end[s];
-        if (is_sync[s]) {
-          base = pw[s];
-          has_base = true;
-        }
-        const float ew = fmaxf(0.f, wv[s] - bwp[s * p.bw_st[3]]);
-        const float arr = stat_relp[s] + seg;
-        const float am = stat_amax[s];
-        const float other = (r == stat_lead[s]) ? stat_sec[s] : am;
-        const float new_a = fmaxf(other, arr - ew);
-        const float contrib = valid ? fmaxf(0.f, am - new_a) : 0.f;
-        wacc[s] = wacc[s] + contrib;
-        if (REG || HOSTS) {
-          const bool act = valid && (ew > thr[s]);
-          if (REG) {
-            const int ai = act ? 1 : 0;
-            cnt[s] += ai;
-            ons[s] = act ? min(ons[s], n) : ons[s];
-            lst[s] = act ? max(lst[s], n) : lst[s];
-            rns[s] += ai * (1 - prv[s]);
-            stk[s] = act ? stk[s] + 1 : 0;
-            prv[s] = ai;
-            se[s] = se[s] + ew;
-            sp[s] = sp[s] + se[s];
-          }
-          if (HOSTS && act && host >= 0)
-            atomicAdd(&p.hostcnt[(jn * S + s) * p.H + host], 1);
-        }
-      }
-    }
-  }
-
-  if (!valid) return;
-#pragma unroll
-  for (int s = 0; s < MS; ++s) {
-    if (s < S) {
-      const long long o = ((long long)j * S + s) * R + r;
-      p.wif[o] = wacc[s];
-      if (REG) {
-        p.count[o] = cnt[s];
-        p.onset[o] = ons[s];
-        p.last[o] = lst[s];
-        p.runs[o] = rns[s];
-        p.streak[o] = stk[s];
-        p.sume[o] = se[s];
-        p.sumpfx[o] = sp[s];
-      }
-    }
   }
 }
 
-// Stages per frontier-reduction round of the wide variant (one lane of
-// the reducing warp per stage).
+// Stages per frontier-reduction round of the wide role (one lane of the
+// reducing warp per stage).
 constexpr int kChunk = 32;
 
-// The tick for any S (used past 16 stages).  The arithmetic of
-// `fused_tick_kernel`, with the stage prefixes in the blocked order of
-// `StagePrefix`; per-stage state lives in the outputs and in running
-// prefixes instead of register arrays.
-template <bool REG, bool HOSTS>
+// The frontier role for any S (used past 16 stages): the arithmetic of
+// `frontier_role_kernel`, with the stage prefixes in the blocked order of
+// `StagePrefix` and kChunk stages reduced per round.
 __global__ void __launch_bounds__(kThreads)
-    fused_tick_wide_kernel(const Params p) {
-  const int j = blockIdx.x;
+    frontier_role_wide_kernel(const Params p) {
+  const int chunks = (p.N + kStepChunk - 1) / kStepChunk;
+  const int j = blockIdx.x / chunks;
+  const int n0 = (blockIdx.x - j * chunks) * kStepChunk;
+  const int n1 = min(p.N, n0 + kStepChunk);
   const int tile = blockIdx.y;
   const int r = tile * kThreads + threadIdx.x;
   const bool valid = r < p.R;
@@ -350,41 +254,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int sm_i[2][kWarps][kChunk];
 
   const long long rr = valid ? r : 0;  // in-bounds address for idle lanes
-  const float* thr = (REG || HOSTS) ? p.thr + ((long long)j * R + rr) * S : nullptr;
-  int host = -1;
-  if (HOSTS && valid) {
-    host = p.host[(long long)j * R + r];
-    if (host < 0 || host >= p.H) host = -1;  // out of range: no host row
-  }
-  // accumulators: this rank's cells of the [J, S, R] outputs
-  const long long acc0 = (long long)j * S * R + r;
-  if (valid) {
-    for (int s = 0; s < S; ++s) {
-      const long long o = acc0 + (long long)s * R;
-      p.wif[o] = 0.f;
-      if (REG) {
-        p.count[o] = 0;
-        p.onset[o] = kBig;
-        p.last[o] = -1;
-        p.runs[o] = 0;
-        p.streak[o] = 0;
-        p.sume[o] = 0.f;
-        p.sumpfx[o] = 0.f;
-      }
-    }
-  }
-
   int rounds = 0;  // frontier rounds so far: picks the shared buffer
-  for (int n = 0; n < N; ++n) {
+  for (int n = n0; n < n1; ++n) {
     const long long jn = (long long)j * N + n;
     const float* drow = p.d + (jn * R + rr) * S;
     const float* bdp = p.bd + j * p.bd_st[0] + n * p.bd_st[1] + rr * p.bd_st[2];
-    const float* bwp = p.bw + j * p.bw_st[0] + n * p.bw_st[1] + rr * p.bw_st[2];
-    const float* wmin = p.wmin + jn * S;
-    const float* stat_amax = p.amax + jn * S;
-    const float* stat_sec = p.sec + jn * S;
-    const int* stat_lead = p.lead + jn * S;
-    const float* stat_relp = p.relp + jn * S;
 
     // the last stage prefix first: every stage's clip needs it
     float pd_final = 0.f;
@@ -393,7 +267,6 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = 0; s < S; ++s) pd_final = pfx.next(drow[s]);
     }
 
-    // -- frontier family: kChunk stages per warp-shuffle round ------------
     StagePrefix pfx_d;
     for (int c0 = 0; c0 < S; c0 += kChunk, ++rounds) {
       const int cn = min(kChunk, S - c0);
@@ -445,57 +318,6 @@ __global__ void __launch_bounds__(kThreads)
         p.pc[o] = bc;
       }
     }
-
-    // -- what-if family (+ regime / host activity), one governing segment
-    // at a time: a segment runs to the first barrier at or after its
-    // start, else to the last stage
-    if (!valid) continue;
-    StagePrefix pfx_w;  // prefix of w, taken through each segment's end
-    float base = 0.f;   // prefix at the previous barrier
-    bool has_base = false;
-    for (int start = 0; start < S;) {
-      int end = start;
-      while (end < S - 1 && !p.sync[end]) ++end;
-      float pw_end = 0.f;
-      for (int s = start; s <= end; ++s)
-        pw_end = pfx_w.next(p.sync[s] ? wmin[s] : drow[s]);
-      const float seg = has_base ? pw_end - base : pw_end;
-      for (int s = start; s <= end; ++s) {
-        const float wv = p.sync[s] ? wmin[s] : drow[s];
-        const float ew = fmaxf(0.f, wv - bwp[s * p.bw_st[3]]);
-        const float arr = stat_relp[s] + seg;
-        const float am = stat_amax[s];
-        const float other = (r == stat_lead[s]) ? stat_sec[s] : am;
-        const float new_a = fmaxf(other, arr - ew);
-        const long long o = acc0 + (long long)s * R;
-        p.wif[o] = p.wif[o] + fmaxf(0.f, am - new_a);
-        if (REG || HOSTS) {
-          const bool act = ew > thr[s];
-          if (REG) {
-            const int ai = act ? 1 : 0;
-            const int stk = p.streak[o];
-            const int prv = stk > 0 ? 1 : 0;  // the previous step was active
-            p.count[o] += ai;
-            if (act) {
-              p.onset[o] = min(p.onset[o], n);
-              p.last[o] = max(p.last[o], n);
-            }
-            p.runs[o] += ai * (1 - prv);
-            p.streak[o] = act ? stk + 1 : 0;
-            const float se = p.sume[o] + ew;
-            p.sume[o] = se;
-            p.sumpfx[o] = p.sumpfx[o] + se;
-          }
-          if (HOSTS && act && host >= 0)
-            atomicAdd(&p.hostcnt[(jn * S + s) * p.H + host], 1);
-        }
-      }
-      if (p.sync[end]) {
-        base = pw_end;
-        has_base = true;
-      }
-      start = end + 1;
-    }
   }
 }
 
@@ -521,29 +343,33 @@ __global__ void fold_tiles_kernel(const Params p) {
   p.fc[idx] = c;
 }
 
-template <int MS>
-void launch_main(const Params& p, bool reg, bool hosts, cudaStream_t st) {
-  const dim3 grid(p.J, p.T);
-  if (reg && hosts)
-    fused_tick_kernel<MS, true, true><<<grid, kThreads, 0, st>>>(p);
-  else if (reg)
-    fused_tick_kernel<MS, true, false><<<grid, kThreads, 0, st>>>(p);
-  else if (hosts)
-    fused_tick_kernel<MS, false, true><<<grid, kThreads, 0, st>>>(p);
-  else
-    fused_tick_kernel<MS, false, false><<<grid, kThreads, 0, st>>>(p);
-}
-
-void launch_wide(const Params& p, bool reg, bool hosts, cudaStream_t st) {
-  const dim3 grid(p.J, p.T);
-  if (reg && hosts)
-    fused_tick_wide_kernel<true, true><<<grid, kThreads, 0, st>>>(p);
-  else if (reg)
-    fused_tick_wide_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
-  else if (hosts)
-    fused_tick_wide_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
-  else
-    fused_tick_wide_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
+CellParams cell_params(const Params& p) {
+  CellParams c;
+  c.d = p.d;
+  c.wmin = p.wmin;
+  c.bw = p.bw;
+  c.amax = p.amax;
+  c.sec = p.sec;
+  c.lead = p.lead;
+  c.relp = p.relp;
+  c.sync = p.sync;
+  c.thr = p.thr;
+  c.host = p.host;
+  c.wif = p.wif;
+  c.count = p.count;
+  c.onset = p.onset;
+  c.last = p.last;
+  c.runs = p.runs;
+  c.streak = p.streak;
+  c.sume = p.sume;
+  c.sumpfx = p.sumpfx;
+  c.hostcnt = p.hostcnt;
+  for (int k = 0; k < 4; ++k) c.bw_st[k] = p.bw_st[k];
+  c.N = p.N;
+  c.R = p.R;
+  c.S = p.S;
+  c.H = p.H;
+  return c;
 }
 
 }  // namespace
@@ -559,7 +385,7 @@ enum {
 };
 // Integer slots of `ints`.
 enum {
-  iJ, iN, iR, iS, iH, iT, iSyncMask, iReg, iHosts,
+  iJ, iN, iR, iS, iH, iT, iReg, iHosts,
   iBd0, iBd1, iBd2, iBd3, iBw0, iBw1, iBw2, iBw3,
   kNumInts
 };
@@ -568,8 +394,9 @@ int fused_tick_num_slots(int which) {
   return which == 0 ? static_cast<int>(kNumPtrs) : static_cast<int>(kNumInts);
 }
 
-// Launches the tick (and the tile fold when T > 1) on `stream`.  Returns
-// cudaGetLastError() after the launches: 0 when both were accepted.
+// Launches the tick on `stream`: the cell role, the frontier role and,
+// when T > 1, the tile fold.  Returns the first launch error, else
+// cudaGetLastError() after the launches: 0 when all were accepted.
 int fused_tick_launch(void* const* ptrs, const long long* ints,
                       void* stream) {
   Params p;
@@ -607,7 +434,6 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
   p.S = static_cast<int>(ints[iS]);
   p.H = static_cast<int>(ints[iH]);
   p.T = static_cast<int>(ints[iT]);
-  p.sync_mask = static_cast<unsigned>(ints[iSyncMask]);
   for (int k = 0; k < 4; ++k) {
     p.bd_st[k] = ints[iBd0 + k];
     p.bw_st[k] = ints[iBw0 + k];
@@ -617,12 +443,28 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   cudaGetLastError();  // clear any stale error from earlier work
-  if (p.S <= 8)
-    launch_main<8>(p, reg, hosts, st);
-  else if (p.S <= 16)
-    launch_main<16>(p, reg, hosts, st);
-  else
-    launch_wide(p, reg, hosts, st);
+  // the cell role first; the frontier role may start beside it (the warp
+  // walk lets it at once, the slab walk when it ends)
+  const CellParams cp = cell_params(p);
+  const cudaError_t err = reg && hosts ? launch_cell_walk<true, true>(cp, p.J, st)
+                          : reg        ? launch_cell_walk<true, false>(cp, p.J, st)
+                          : hosts      ? launch_cell_walk<false, true>(cp, p.J, st)
+                                       : launch_cell_walk<false, false>(cp, p.J, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (p.N + kStepChunk - 1) / kStepChunk;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.J * chunks), static_cast<unsigned>(p.T));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute overlap;
+  overlap.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  overlap.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &overlap;
+  cfg.numAttrs = 1;
+  const cudaError_t front = p.S <= 8    ? cudaLaunchKernelEx(&cfg, frontier_role_kernel<8>, p)
+                            : p.S <= 16 ? cudaLaunchKernelEx(&cfg, frontier_role_kernel<16>, p)
+                                        : cudaLaunchKernelEx(&cfg, frontier_role_wide_kernel, p);
+  if (front != cudaSuccess) return static_cast<int>(front);
   if (p.T > 1) {
     const long long total = (long long)p.J * p.N * p.S;
     const int threads = 256;

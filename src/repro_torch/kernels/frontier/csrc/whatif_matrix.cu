@@ -14,9 +14,10 @@
 // Replaces the Pallas TPU kernel `_whatif_kernel`
 // (src/repro/kernels/frontier/frontier.py, reached through
 // `whatif_matrix_kernel` from `fleet_whatif_matrix`).  One of the three
-// separate launches of the four-dispatch reference route; it shares no
-// kernel code with `fused_tick.cu`, only the prefix order of
-// `frontier_common.cuh`.
+// separate launches of the four-dispatch reference route, which exists to
+// check the fused tick: it runs the fused tick's cell role
+// (`cell_walk.cuh`) with the what-if family alone, so the two routes share
+// the arithmetic they must agree on bit for bit.
 //
 // Bound.  A few operations per float loaded: bound by device-memory
 // bytes.  It reads d once (J*N*R*S*4 bytes) and the [J, N, S] rows (the
@@ -25,105 +26,36 @@
 // is never a second window: w is d except on sync stages, where it is
 // the [J, N, S] row.  The baseline arrives as a strided view.
 //
-// Design.  The TPU folds steps on its sequential grid into a VMEM-resident
-// accumulator.  Here grid (J, ceil(R / 128)), 128 threads, one thread per
-// (job, rank) in the natural layout, unpadded; each thread walks the N
-// steps in order and keeps its S sums in its own cells of the [J, S, R]
-// output (coalesced over the warp's ranks), so any S works and every sum
-// is one add per step in step order, with no multiply (nothing contracts
-// to an FMA).  Per step it walks the sync segments: the segment's prefix
-// first, then each stage's contribution.  The sync set arrives as one
-// byte per stage, so a barrier past bit 31 needs no mask.  The arrival is
-// rebuilt with the same adds as the caller's prolog
-// (`ops.whatif_stats`), so the leader's own arrival equals amax bit for
-// bit and its zero-excess cell gains nothing.
+// Design.  The TPU folds steps on its sequential grid into a
+// VMEM-resident accumulator, one grid row per (job, rank tile).  Here the
+// only serial chain is the step sum of one cell, so the kernel is one
+// thread per (job, rank, stage) cell, each walking the N steps in order
+// with its sum in a register, one add per step and no multiply (nothing
+// contracts to an FMA), and writing it once, at the end.  Up to 32
+// stages a warp holds whole ranks and takes each rank's stage prefix as
+// a chain of shuffles, once per (rank, step, stage), with no shared
+// memory and no barrier; past 32 a block stages each batch of steps in
+// shared memory and one thread per (step, rank) takes the prefix (see
+// `cell_walk.cuh`).  The sync set arrives as one byte per stage, so a
+// barrier past bit 31 needs no mask.
 //
 // Subnormals: built with -ftz=true, as the reference flushes.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "frontier_common.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-struct Params {
-  const float* d;     // [J, N, R, S] contiguous
-  const float* wmin;  // [J, N, S] cross-rank minimum (read on sync stages)
-  const float* bw;    // what-if baseline, strided view of [J, N, R, S]
-  const float* amax;  // [J, N, S] governing-boundary release
-  const float* sec;   // [J, N, S] governing-boundary second arrival
-  const int* lead;    // [J, N, S] governing-boundary leader
-  const float* relp;  // [J, N, S] previous segment's release
-  const unsigned char* sync;  // [S], 1 on sync stages
-  float* wif;         // [J, S, R]
-  long long bw_st[4];
-  int N, R, S;
-};
-
-__global__ void __launch_bounds__(kThreads)
-    whatif_matrix_kernel(const Params p) {
-  const int j = blockIdx.x;
-  const int r = blockIdx.y * kThreads + threadIdx.x;
-  if (r >= p.R) return;
-  const int S = p.S;
-  const int N = p.N;
-  const long long acc0 = (long long)j * S * p.R + r;  // this rank's cells
-  for (int s = 0; s < S; ++s) p.wif[acc0 + (long long)s * p.R] = 0.f;
-
-  for (int n = 0; n < N; ++n) {
-    const long long jn = (long long)j * N + n;
-    const float* drow = p.d + (jn * p.R + r) * S;
-    const float* bwp = p.bw + j * p.bw_st[0] + n * p.bw_st[1] + r * p.bw_st[2];
-    const float* wmin = p.wmin + jn * S;
-    const float* stat_amax = p.amax + jn * S;
-    const float* stat_sec = p.sec + jn * S;
-    const int* stat_lead = p.lead + jn * S;
-    const float* stat_relp = p.relp + jn * S;
-
-    StagePrefix pfx;    // prefix of w, taken through each segment's end
-    float base = 0.f;   // prefix at the previous barrier
-    bool has_base = false;
-    for (int start = 0; start < S;) {
-      int end = start;
-      while (end < S - 1 && !p.sync[end]) ++end;
-      float pw_end = 0.f;
-      for (int s = start; s <= end; ++s)
-        pw_end = pfx.next(p.sync[s] ? wmin[s] : drow[s]);
-      const float seg = has_base ? pw_end - base : pw_end;
-      for (int s = start; s <= end; ++s) {
-        const float wv = p.sync[s] ? wmin[s] : drow[s];
-        const float ew = fmaxf(0.f, wv - bwp[s * p.bw_st[3]]);
-        const float arr = stat_relp[s] + seg;
-        const float am = stat_amax[s];
-        const float other = (r == stat_lead[s]) ? stat_sec[s] : am;
-        const float new_a = fmaxf(other, arr - ew);
-        const long long o = acc0 + (long long)s * p.R;
-        p.wif[o] = p.wif[o] + fmaxf(0.f, am - new_a);
-      }
-      if (p.sync[end]) {
-        base = pw_end;
-        has_base = true;
-      }
-      start = end + 1;
-    }
-  }
-}
-
-}  // namespace
+#include "cell_walk.cuh"
 
 extern "C" {
 
-// Launches the kernel on `stream`; `wmin` may be any valid address when
-// no stage is a sync stage.  Returns cudaGetLastError() after the launch:
-// 0 when it was accepted.
+// Launches the kernel on `stream`; `wmin` is read at [J, N, S] offsets
+// even when no stage is a sync stage (pass the window itself then).  Returns cudaGetLastError() after the launch
+// (or the error that kept it from launching): 0 when it was accepted.
 int whatif_matrix_launch(const void* d, const void* wmin, const void* bw,
                          const void* amax, const void* sec, const void* lead,
                          const void* relp, const void* sync, void* wif,
                          const long long* bw_st, int J, int N, int R, int S,
                          void* stream) {
-  Params p;
+  CellParams p = {};
   p.d = static_cast<const float*>(d);
   p.wmin = static_cast<const float*>(wmin);
   p.bw = static_cast<const float*>(bw);
@@ -140,9 +72,8 @@ int whatif_matrix_launch(const void* d, const void* wmin, const void* bw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   cudaGetLastError();  // clear any stale error from earlier work
-  const dim3 grid(static_cast<unsigned>(J),
-                  static_cast<unsigned>((R + kThreads - 1) / kThreads));
-  whatif_matrix_kernel<<<grid, kThreads, 0, st>>>(p);
+  const cudaError_t err = launch_cell_walk<false, false>(p, J, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,8 @@ composes too.  It never falls back from one to the other.
 Together they are the four-dispatch reference route
 (`fused.four_dispatch_tick`): separate launches, each re-reading the
 window, held bit for bit against the fused tick kernel, which computes
-all the families from one read.
+all the families in one call.  The what-if kernel is the fused kernel's
+cell role with the what-if family alone (`csrc/cell_walk.cuh`).
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ matrix, temporal regime statistics and host co-activation counts.
                    the kernel as zero-stride views, never materialized at
                    window size), the what-if boundary stats rows;
   kernel  (CUDA)   `csrc/fused_tick.cu`: all four accumulator families
-                   from one read of the window (see the source note for
-                   the design and its bound);
+                   in one call, as a frontier role spread over (job,
+                   step chunk, rank tile) and a cell role that walks the
+                   steps once per (job, rank, stage) cell (see the source
+                   note for the design and its bound);
   epilog  (torch)  shares, gains, gaps, regime duty/slope and the
                    cross-job co-activation reduction.
 
@@ -185,9 +187,6 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
         return 0 if t is None else t.data_ptr()
 
     reg = regimes if regimes is not None else (None,) * 7
-    # the register variants (S <= 16) take the sync set as bits, the wide
-    # variant as the prolog's byte per stage
-    sync_mask = sum(1 << i for i in x.sync_stages) if s <= 16 else 0
     ptrs = [
         ptr(d), ptr(x.wmin if x.sync_stages else d), ptr(x.bd), ptr(x.bw),
         ptr(x.amax), ptr(x.second), ptr(x.leader), ptr(x.relprev),
@@ -196,8 +195,7 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
         ptr(wif), *(ptr(t) for t in reg), ptr(hostcnt),
     ]
     ints = [
-        jn, n, r, s, x.num_hosts, tiles, sync_mask,
-        int(x.with_regimes), int(with_hosts),
+        jn, n, r, s, x.num_hosts, tiles, int(x.with_regimes), int(with_hosts),
         *x.bd.stride(), *x.bw.stride(),
     ]
     if len(ptrs) != lib.fused_tick_num_slots(0) or len(ints) != lib.fused_tick_num_slots(1):

@@ -87,15 +87,19 @@ def _assert_tick_close(got, want, ctx):
 # ---------------------------------------------------------------------------
 
 #: (J, N, R, S) and a sync set: the service's six-stage schema, a rank
-#: past one tile, one rank, and 18 / 33 stages (a barrier past bit 31)
+#: past one tile, one rank, 18 / 33 stages (a barrier past bit 31), and
+#: R*S = 910, no multiple of 128, with the last stage synced, over 9 steps
+#: and over a single step
 _ROUTE_CASES = [
     ((2, 4, 8, 6), (2,)),
     ((2, 3, 129, 5), (1, 4)),
     ((2, 4, 1, 4), (1,)),
     ((2, 3, 6, 18), (2, 5, 8, 11, 14, 17)),
     ((2, 3, 5, 33), tuple(range(2, 33, 3)) + (32,)),
+    ((3, 9, 130, 7), (2, 6)),
+    ((2, 1, 130, 7), (2, 6)),
 ]
-_ROUTE_IDS = ["6st", "r129", "r1", "18st", "33st"]
+_ROUTE_IDS = ["6st", "r129", "r1", "18st", "33st", "r130s7", "n1"]
 
 
 class TestKernelRoutes:
@@ -204,7 +208,9 @@ class TestKernelRoutes:
 # the reference's contract on the port: four-dispatch == fused, bit for bit
 # ---------------------------------------------------------------------------
 
-_SHAPE_GROUPS = [(2, 3, 6), (4, 8, 3), (1, 1, 4), (3, 16, 8), (3, 129, 5), (2, 300, 6)]
+#: the per-job (N, R, S) groups of `test_torch_fused_tick.py`
+_SHAPE_GROUPS = [(2, 3, 6), (4, 8, 3), (1, 1, 4), (3, 16, 8), (3, 129, 5), (2, 300, 6),
+                 (9, 130, 7), (1, 130, 7)]
 
 
 def _both_routes(d, baseline=None, **kw):

@@ -17,8 +17,11 @@ from repro_torch.kernels.frontier import fused, ops  # noqa: E402
 from repro_torch.kernels.frontier import fused_fleet_tick as torch_tick  # noqa: E402
 
 # the per-job (N, R, S) groups of tests/test_fused_tick.py, plus a rank
-# count past one 128-rank tile and one past two
-_SHAPE_GROUPS = [(2, 3, 6), (4, 8, 3), (1, 1, 4), (3, 16, 8), (3, 129, 5), (2, 300, 6)]
+# count past one 128-rank tile and one past two, and the CUDA kernel's
+# thread-mapping tails: R*S = 910, no multiple of 128 (the last stage is
+# synced, see `test_all_families`), over 9 steps and over a single step
+_SHAPE_GROUPS = [(2, 3, 6), (4, 8, 3), (1, 1, 4), (3, 16, 8), (3, 129, 5), (2, 300, 6),
+                 (9, 130, 7), (1, 130, 7)]
 
 #: stage-index sync profiles of the simulator's six-stage schema
 _SYNCS = {"none": None, "ddp": (2,), "fsdp": (1, 2)}

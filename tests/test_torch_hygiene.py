@@ -165,6 +165,15 @@ def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     assert _lib._library_path(tmp_path / "k.cu") != before
 
 
+def test_fused_and_whatif_kernels_share_the_cell_walk():
+    """The fused tick and the four-dispatch what-if kernel must agree bit
+    for bit, so both build the one cell walk rather than copies of it."""
+    for name in ("fused_tick.cu", "whatif_matrix.cu"):
+        text = _lib.kernel_source(name).read_text()
+        assert '#include "cell_walk.cuh"' in text, name
+        assert "cell_warp_kernel" not in text and "cell_slab_kernel" not in text, name
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     """No CUDA device: non-zero exit and no result line."""
     proc = subprocess.run(
