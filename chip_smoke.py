@@ -17,7 +17,10 @@ package — in these phases, and exits non-zero if any fails:
            group shapes, the larger service shape, edge shapes (one step,
            a step count no multiple of the frontier role's step chunk,
            R*S no multiple of 128 with the last stage synced, one rank,
-           an explicit [R, S] baseline), the accumulation-expanded 18/27/33-stage
+           an explicit [R, S] baseline, R*S = 42 and 63, 32 stages, 513
+           ranks, the max tied between ranks of different rank groups,
+           warps and rank tiles, where the frontier kernel must also name
+           the lowest tied rank), the accumulation-expanded 18/27/33-stage
            schemas, a window fed values around FLT_MIN, and a fleet-scale
            shape: bit for bit on every field; times both with CUDA events
            (L2 flushed before every launch) beside the byte bound at 3.35
@@ -33,10 +36,6 @@ package — in these phases, and exits non-zero if any fails:
            that exactly one switch-tier fleet incident formed on the
            shared uplink, and that incidents, escalations, routes and
            snapshot equal a `--device cpu` run; prints its phase split;
-  coact    runs the co-activation kernel against its plain torch version
-           on the card, exactly, on the fabric run's own group tensors,
-           edge shapes (one job, one host, five stages, tiers with
-           unmapped hosts) and a fleet-scale shape, timed as above;
   service  runs `serve_fleet` (no topology) at the same size on the card,
            with the tick's launch count reset just before, and checks
            that the kernel ran, that the top route is a faulted job, and
@@ -54,6 +53,14 @@ package — in these phases, and exits non-zero if any fails:
            on the shared uplink; the same run with `--tick-path fused`
            gives the same report outside its wall-clock fields; prints
            both runs' phase split;
+  coact    runs the co-activation kernel against its plain torch version
+           on the card, exactly, on the fabric run's and the four-dispatch
+           replay's own group tensors (each distinct shape), edge shapes
+           (one job, 67 and 130 jobs, one host, one step, 37 steps, five
+           stages, C*S = 111 and 1,200, all ones, all zeros, one job alone
+           on a column, 800 to 2,500 steps (one or two chunks of the
+           kernel's step array), tiers with unmapped hosts) and a
+           fleet-scale shape, timed as above;
   groups   the inputs the fabric, service and fused replay runs handed
            the fused kernel and the tick and four-dispatch replay runs
            handed each single-family kernel, recorded at each (shape, sync
@@ -78,6 +85,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -121,6 +129,11 @@ COACT_OPS_PER_ELEMENT = 3
 FAMILY_OPS_PER_ELEMENT = {
     "frontier_window": 10, "whatif_matrix": 10, "regime_stats": 12,
 }
+
+#: ranks that share the max of a tied window: in different rank groups,
+#: warps and batches of the frontier kernel's warp fold at six stages, and
+#: in three of its 128-rank tiles past 32 stages
+TIED_RANKS = (5, 37, 69, 133, 290)
 
 #: serve_fleet's sync profiles as stage indices of the six-stage schema
 DDP, FSDP, ZERO1 = (2,), (1, 2), (2, 4)
@@ -184,6 +197,19 @@ def kernel_cases():
         ("edge, 7 steps, 18 stages, R*S = 2340, last stage synced",
          (3, 7, 130, 18), dict(sync_stages=(2, 5, 8, 11, 14, 17), hosts=4)),
         ("edge, one rank, 5 jobs", (5, 12, 1, 6), dict(sync_stages=DDP, hosts=1)),
+        # the frontier kernel's warp fold: R*S = 42 and 63, no multiple of
+        # a warp's 32 lanes; 32 stages (one rank a warp); 513 ranks; the
+        # max tied between ranks of different rank groups, warps and rank
+        # tiles (the lowest must lead, the second equal the max), up to
+        # 32 stages and past them
+        ("edge, R*S = 42", (2, 5, 7, 6), dict(sync_stages=DDP, hosts=2)),
+        ("edge, R*S = 63", (2, 5, 9, 7), dict(sync_stages=(2, 6), hosts=2)),
+        ("edge, 32 stages", (2, 4, 5, 32), dict(sync_stages=(3, 31), hosts=2)),
+        ("edge, 513 ranks", (2, 3, 513, 6), dict(sync_stages=DDP, hosts=5)),
+        ("edge, ranks tied at the max", (3, 4, 300, 6),
+         dict(sync_stages=DDP, hosts=3, tied=TIED_RANKS)),
+        ("edge, ranks tied at the max, 33 stages", (2, 3, 300, 33),
+         dict(sync_stages=(2, 32), hosts=3, tied=TIED_RANKS)),
         ("edge, one rank, 5 jobs, service call", (5, 12, 1, 6),
          dict(sync_stages=DDP, with_regimes=False)),
         # an explicit [R, S] baseline: the cell walks read it through
@@ -383,6 +409,23 @@ def recording(module, wrappers, groups):
             setattr(module, cuda, saved[name])
 
 
+@contextlib.contextmanager
+def recording_coact(coact, groups):
+    """While open, every launch of the co-activation wrapper appends a copy
+    of its activity tensor to `groups`; the launches are unchanged."""
+    launch = coact._co_activation_cuda
+
+    def recorded(a):
+        groups.append(a.clone())
+        return launch(a)
+
+    coact._co_activation_cuda = recorded
+    try:
+        yield groups
+    finally:
+        coact._co_activation_cuda = launch
+
+
 def recording_families(kernels, groups):
     """`recording` of the four-dispatch route's single-family wrappers."""
     return recording(kernels, {n: c for n, (c, _) in WRAPPERS.items()}, groups)
@@ -500,6 +543,7 @@ def kernel_phase(torch, np, fused, kernels, flush):
         kw = dict(kw)
         hosts = kw.pop("hosts", 0)
         tiny = kw.pop("tiny", None)
+        tied = kw.pop("tied", ())
         rng = np.random.default_rng(sum(shape) + hosts)
         if tiny is None:
             d = rng.exponential(0.03, shape).astype(np.float32)
@@ -507,12 +551,18 @@ def kernel_phase(torch, np, fused, kernels, flush):
             base, step = tiny
             k = rng.integers(0, 60, shape).astype(np.float32)
             d = (np.float32(base) + k * np.float32(step)).astype(np.float32)
+        if tied:  # one row above every rank's, copied into the tied ranks
+            d[:, :, list(tied), :] = d.max(axis=2, keepdims=True) + 0.01
         if hosts:
             kw["host_index"] = rng.integers(0, hosts, (shape[0], shape[2]))
             kw["num_hosts"] = hosts
         if kw.get("baseline"):
             kw["baseline"] = rng.exponential(0.03, shape[2:]).astype(np.float32)
         x = fused.tick_inputs(torch.from_numpy(d).cuda(), **kw)
+        if tied:
+            f, fl, fs, _ = kernels._frontier_cuda(x)
+            if not (bool((fl == min(tied)).all()) and torch.equal(fs, f)):
+                raise AssertionError(f"{label}: the lowest tied rank must lead")
         (got, want), measured = fused_case(torch, fused, x, flush)
         pg, pw = fused._epilog(x, got), fused._epilog(x, want)
         for fam in ("frontier", "whatif", "regimes", "coact"):
@@ -600,18 +650,9 @@ def fabric_phase(fused, kernels, coact, serve_fleet):
     equals a cpu run.  Returns the co-activation launches and the
     activity tensors the engine scored (the service's own groups)."""
     groups = []
-    launch = coact._co_activation_cuda
-
-    def record(a):
-        groups.append(a.clone())
-        return launch(a)
-
-    coact._co_activation_cuda = record
     reset_launches(fused, kernels, coact)
-    try:
+    with recording_coact(coact, groups):
         out, wall = serve(serve_fleet, FABRIC_ARGS + ["--device", "cuda"])
-    finally:
-        coact._co_activation_cuda = launch
     launches = read_launches(fused, kernels, coact)
     if min(launches["fused_tick"], launches["coactivation"]) <= 0 or any(
         launches[k] for k in FOUR_DISPATCH
@@ -636,9 +677,10 @@ def fabric_phase(fused, kernels, coact, serve_fleet):
     return launches["coactivation"], groups
 
 
-def coact_cases(torch, groups):
+def coact_cases(torch, groups, replay_groups):
     """(label, act) of every co-activation kernel case: the fabric run's
-    own group tensors first, then edge and fleet-scale shapes."""
+    and the replay's own group tensors first, then edge and fleet-scale
+    shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
 
@@ -646,22 +688,47 @@ def coact_cases(torch, groups):
         r = torch.rand(shape, generator=gen, device="cuda")
         return (r < p).view(torch.uint8)
 
-    seen, cases = set(), []
-    for g in groups:    # the first group of each shape the run scored
-        if tuple(g.shape) not in seen:
-            seen.add(tuple(g.shape))
-            cases.append((f"fabric service group {len(cases)}", g))
+    cases = []
+    for label, run in (("fabric service", groups), ("replay", replay_groups)):
+        seen = set()
+        for g in run:    # the first group of each shape the run scored
+            if tuple(g.shape) not in seen:
+                seen.add(tuple(g.shape))
+                cases.append((f"{label} group {len(seen) - 1}", g))
+    # one column active in one job only, at every other step: jobs 1,
+    # coact 0, active 25 there
+    single = torch.zeros((8, 50, 6, 6), dtype=torch.uint8, device="cuda")
+    single[3, ::2, 2, 4] = 1
     cases += [
         ("edge, one job", act((1, 40, 7, 6))),
         ("edge, one host", act((5, 30, 1, 6))),
         ("edge, 5 stages", act((6, 33, 130, 5))),
+        # job counts no multiple of the kernel's job split (67), and past
+        # one round of it (130); one step; 37 steps, no multiple of a load
+        # batch; C*S = 111 and 1,200, no multiple of a column tile (one
+        # column a lane, four); every entry 1; every entry 0
+        ("edge, 67 jobs", act((67, 20, 5, 6))),
+        ("edge, 130 jobs", act((130, 9, 3, 2))),
+        ("edge, one step", act((9, 1, 40, 6))),
+        ("edge, 37 steps", act((12, 37, 10, 6))),
+        ("edge, C*S = 111", act((5, 17, 37, 3))),
+        ("edge, C*S = 1200", act((6, 9, 300, 4))),
+        ("edge, all ones", act((10, 30, 20, 6), p=1.0)),
+        ("edge, all zeros", act((10, 30, 20, 6), p=0.0)),
+        ("edge, one job on a column", single),
+        # long windows in one chunk of the kernel's step array, and past
+        # it (two chunks)
+        ("edge, 1000 steps", act((40, 1000, 8, 2))),
+        ("edge, 140 jobs x 800 steps", act((140, 800, 3, 2), p=0.1)),
+        ("edge, 2500 steps", act((40, 2500, 8, 2))),
+        ("edge, 140 jobs x 2000 steps", act((140, 2000, 3, 2), p=0.1)),
     ]
     # 256 jobs x 400 steps x (512 hosts + 64 switches + 8 pods) x 8 stages
     cases.append(("fleet scale", act((256, 400, 512 + 64 + 8, 8), p=0.05)))
     return cases
 
 
-def coact_phase(torch, np, coact, groups, flush):
+def coact_phase(torch, np, coact, groups, replay_groups, flush):
     """The co-activation kernel against its plain version on the card,
     exactly, then timed beside its byte bound."""
     # the tiered prolog with unmapped (-1) hosts: the combined columns
@@ -679,7 +746,7 @@ def coact_phase(torch, np, coact, groups, flush):
                 raise AssertionError(f"tier {i} {name} differs from the oracle")
     segments = [torch.from_numpy(host_act).cuda().view(torch.uint8)]
     segments += [coact._collapse_tier(segments[0], t) for t in tiers]
-    cases = coact_cases(torch, groups)
+    cases = coact_cases(torch, groups, replay_groups)
     cases.append(("edge, tiers with unmapped hosts",
                   torch.cat(segments, dim=2).contiguous()))
     rows = []
@@ -687,11 +754,16 @@ def coact_phase(torch, np, coact, groups, flush):
         got = coact._co_activation_cuda(a)
         torch.cuda.synchronize()
         want = coact._co_activation_plain(a)
+        err = family_err(got, want, torch)
         for name, u, v in zip(got._fields, got, want):
             if not torch.equal(u, v):
                 raise AssertionError(
                     f"{label}: {name}: {(u != v).sum().item()} entries differ"
                 )
+        if label == "edge, one job on a column" and [
+            int(t[4, 2]) for t in got
+        ] != [1, 0, 25]:
+            raise AssertionError(f"{label}: {[int(t[4, 2]) for t in got]}")
         ms = time_ms(lambda: coact._co_activation_cuda(a), 20, torch, flush)
         plain_ms = time_ms(lambda: coact._co_activation_plain(a), 3, torch, flush)
         j, n, h, s = a.shape
@@ -700,7 +772,7 @@ def coact_phase(torch, np, coact, groups, flush):
         t_ops = COACT_OPS_PER_ELEMENT * a.numel() / F32_OPS_PER_S * 1e3
         row = dict(
             label=label, shape=list(a.shape), density=a.float().mean().item(),
-            max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes,
@@ -790,21 +862,23 @@ def replay_report(out) -> dict:
     return {k: v for k, v in out.items() if k not in REPLAY_VOLATILE}
 
 
-def replay_phase(fused, kernels, coact, replay, fused_groups):
+def replay_phase(fused, kernels, coact, replay, fused_groups, coact_groups):
     """The replay driver's four-dispatch route on the card: its kernels
     launch (the fused one never), one switch-tier incident forms on the
     shared uplink, and the fused route's report is the same outside the
     wall-clock fields.  Returns the four-dispatch run's launch counts and
     the groups (inputs at each shape, sync set and families) its kernels
-    were handed; the fused run's groups go into `fused_groups`."""
+    were handed; the fused run's groups go into `fused_groups`, the
+    activity tensors the four-dispatch run scored into `coact_groups`."""
     runs, groups = {}, {}
     for path in ("four-dispatch", "fused"):
         argv = REPLAY_ARGS + ["--tick-path", path, "--device", "cuda"]
         reset_launches(fused, kernels, coact)
         t0 = time.perf_counter()
-        record = (recording_families(kernels, groups) if path == "four-dispatch"
+        by_family = path == "four-dispatch"
+        record = (recording_families(kernels, groups) if by_family
                   else recording_fused(fused, fused_groups))
-        with record:
+        with record, recording_coact(coact, coact_groups if by_family else []):
             out = replay.run(replay.make_argparser().parse_args(argv))
         runs[path] = (out, time.perf_counter() - t0,
                       read_launches(fused, kernels, coact))
@@ -833,6 +907,10 @@ def replay_phase(fused, kernels, coact, replay, fused_groups):
         windows_replayed=four["windows_replayed"],
         groups={name: [[list(shape), list(sync)] for shape, sync, *_ in by_key]
                 for name, by_key in groups.items()},
+        coact_group_launches={
+            "x".join(map(str, shape)): n for shape, n in sorted(
+                Counter(tuple(g.shape) for g in coact_groups).items())
+        },
         accuracy_top2=four["accuracy_top2"],
         fleet_incident=fleet[0], incidents=len(four["incidents"]),
         phase_seconds=phase_split(four),
@@ -936,13 +1014,14 @@ def main() -> int:
     fused_groups = {}
     with recording_fused(fused, fused_groups):
         coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
-    coact_rows = coact_phase(torch, np, coact, groups, flush)
     with recording_fused(fused, fused_groups):
         launches = service_phase(fused, kernels, coact, serve_fleet)
     tick_launches, tick_groups = tick_phase(torch, np, fused, kernels, coact)
+    replay_coact = []
     replay_launches, replay_groups = replay_phase(
-        fused, kernels, coact, replay, fused_groups
+        fused, kernels, coact, replay, fused_groups, replay_coact
     )
+    coact_rows = coact_phase(torch, np, coact, groups, replay_coact, flush)
     # each kernel at the inputs its main path handed it
     fused_rows = fused_group_phase(torch, fused, "main-path", fused_groups, flush)
     tick_rows = group_phase(torch, kernels, "tick", tick_groups, flush)

@@ -15,102 +15,321 @@
 // per-step cross-job sums never reach device memory, and the three [S, C]
 // int32 counts come out directly.
 //
-// Bound.  One byte read per element and a few integer adds: bound by
-// device-memory bytes (J*N*C*S read once, 3*S*C*4 written).
+// Bound.  One byte read per element and a few integer operations: bound
+// by device-memory bytes (J*N*C*S read once, 3*S*C*4 written).
 //
-// Design.  The TPU grid sweeps the jobs in order and folds them into
-// accumulators that stay in VMEM; on this card blocks run in no order, so
-// the fold is split instead.  Everything is integer, so any order gives
-// the same counts.  The input stays in its natural contiguous layout,
-// read as bytes (one byte per torch.bool), unpadded: the (stage, column)
-// pairs of one (job, step) are one contiguous run, one per thread, so a
-// warp's loads are 32 neighbouring bytes.
+// Design.  One launch, no scratch in device memory, no output zeroed
+// first: each output entry is written once.  The input stays in its
+// natural contiguous layout; its (column, stage) pairs ("columns" below)
+// of one (job, step) are one contiguous run.  Every operation is an
+// integer OR or add, so any order of warps, blocks or atomics gives the
+// same counts.
 //
-//   coact_steps_kernel  grid (ceil(C*S / 128), ceil(N / kSteps)): each
-//                       thread owns one (column, stage) and kSteps steps,
-//                       walks all jobs, keeps the per-step cross-job sums
-//                       in registers, and adds its coact / active counts
-//                       to the outputs with integer atomics.  Per job it
-//                       marks `seen[j, column, stage]` when the job was
-//                       active at any of its steps.
-//   coact_jobs_kernel   one thread per (column, stage): jobs = the count
-//                       of marked jobs.
+//   Tiles.  A thread block cluster of CL blocks owns a tile of 32 words
+//   of that run, one word a lane: 4 columns a word (a warp's request of
+//   one (job, step) is one 128-byte line) when C*S is a multiple of 4 and
+//   at least 1,024, else one column a word.  CL = min(8, J), the portable
+//   most, or min(16, J) where the tiles alone would leave SMs idle (fewer
+//   than SMs / 8 of them) and the card can schedule 16-block clusters (an
+//   H100 can: its non-portable most).
+//   Jobs across blocks.  Block b of the cluster takes jobs [b*Jb,
+//   (b+1)*Jb), Jb = ceil(J / CL).
+//   Steps across warps.  Warp w of a block takes a contiguous share of
+//   the steps and walks it for every job of the block, in batches of
+//   kJobs jobs x kSteps steps whose loads all issue before any use, the
+//   next batch's loads in flight while this one folds.  Whether >= 1 and
+//   >= 2 jobs are active at (step, column) is two bits of a byte of the
+//   block's [steps, 32] word array in shared memory; a step belongs to one
+//   warp, so the warp updates it with a plain read-modify-write (two |=
+//   one & x, one |= x, bytewise on 0/1 bytes): no atomics per step.
+//   "Job j was active on this column" (any) is a register OR over the
+//   warp's steps, ORed once per job into the block's [Jb, 32] word array
+//   (one shared atomic); `active` is a register count.
+//   Cluster.  The blocks' step arrays meet in distributed shared memory:
+//   block b folds the CL arrays at its share of the steps (the same
+//   two-bit rule) and counts `coact`; the blocks' jobs are disjoint, so
+//   each counts `jobs` from its own job array; the leader block adds the
+//   CL blocks' per-column counts and writes the tile's three outputs.
+//   Long windows.  A block's registers leave room for one a SM, so the
+//   step array takes the shared memory the job array leaves: about 1,700
+//   steps on an H100.  A longer window goes in chunks of equal size, each
+//   folded and merged in turn.  The launch fails (cudaErrorInvalidValue)
+//   only past about 14,000 jobs a call, whose job arrays alone would not
+//   fit in shared memory.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSteps = 8;  // steps per thread of coact_steps_kernel
+constexpr int kThreads = 512;
+constexpr int kMinBlocks = 1;      // resident blocks an SM is built for
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;        // blocks of a cluster: the portable most
+constexpr int kWideCluster = 16;   // ... and H100's most, for few tiles
+constexpr int kJobs = 4;           // jobs of a load batch
+constexpr int kSteps = 8;          // steps of a load batch
+constexpr int kVecColumns = 1024;  // C*S from which 4 columns go to a lane
+constexpr uint32_t kOnes = 0x01010101u;
 
 struct Params {
-  const uint8_t* act;  // [J, N, C, S] 0/1 bytes, contiguous
-  uint8_t* seen;       // [J, C, S] zeroed by the caller
-  int* jobs;           // [S, C]
-  int* coact;          // [S, C] zeroed by the caller
-  int* active;         // [S, C] zeroed by the caller
+  const uint8_t* __restrict__ act;  // [J, N, C, S] 0/1 bytes, contiguous
+  int* __restrict__ jobs;           // [S, C]
+  int* __restrict__ coact;          // [S, C]
+  int* __restrict__ active;         // [S, C]
   int J, N, C, S;
+  int CL;      // blocks per cluster
+  int Jb;      // jobs per block: block b takes jobs [b * Jb, (b + 1) * Jb)
+  int chunk;   // steps per chunk of the step array
 };
 
-__global__ void __launch_bounds__(kThreads) coact_steps_kernel(const Params p) {
-  const long long cols = (long long)p.C * p.S;
-  const long long cs = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (cs >= cols) return;
-  const int n0 = blockIdx.y * kSteps;
-  const int steps = min(kSteps, p.N - n0);
-
-  int sum[kSteps];
-#pragma unroll
-  for (int k = 0; k < kSteps; ++k) sum[k] = 0;
-  for (int j = 0; j < p.J; ++j) {
-    const uint8_t* a = p.act + ((long long)j * p.N + n0) * cols + cs;
-    int any = 0;
-#pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
-      if (k < steps) {
-        const int v = a[k * cols] != 0;
-        sum[k] += v;
-        any |= v;
-      }
-    }
-    // every writer stores the same 1: the order of the stores is moot
-    if (any) p.seen[(long long)j * cols + cs] = 1;
-  }
-  int co = 0, ac = 0;
-#pragma unroll
-  for (int k = 0; k < kSteps; ++k) {
-    co += sum[k] >= 2;
-    ac += sum[k];
-  }
-  const int c = static_cast<int>(cs / p.S);
-  const int s = static_cast<int>(cs - (long long)c * p.S);
-  const long long o = (long long)s * p.C + c;
-  if (co) atomicAdd(&p.coact[o], co);
-  if (ac) atomicAdd(&p.active[o], ac);
+template <int V>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ a,
+                                              long long off) {
+  if (V == 4) return __ldg(reinterpret_cast<const unsigned int*>(a + off));
+  return __ldg(a + off);
 }
 
-__global__ void coact_jobs_kernel(const Params p) {
-  const long long cols = (long long)p.C * p.S;
-  const long long cs = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cs >= cols) return;
-  int count = 0;
-  for (int j = 0; j < p.J; ++j) count += p.seen[(long long)j * cols + cs];
-  const int c = static_cast<int>(cs / p.S);
-  const int s = static_cast<int>(cs - (long long)c * p.S);
-  p.jobs[(long long)s * p.C + c] = count;
+// Adds the V bytes of a word of 0/1 (or small) byte counts to `acc`.
+template <int V>
+__device__ __forceinline__ void add_bytes(int (&acc)[V], uint32_t w) {
+#pragma unroll
+  for (int b = 0; b < V; ++b) acc[b] += (w >> (8 * b)) & 0xffu;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) coact_kernel(const Params p) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* anyw = smem;               // [Jb][32]: job active on the column
+  uint32_t* state = smem + p.Jb * 32;  // [chunk][32]: bit 0 >= 1, bit 1 >= 2
+  __shared__ int cnt[3][32 * V];       // jobs, active, coact per column
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = p.CL;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / CL;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int N = p.N;
+  const long long CS = (long long)p.C * p.S;
+  const long long words = CS / V;
+  const long long w = (long long)tile * 32 + lane;  // this lane's word
+  const bool valid = w < words;
+  const long long col = (valid ? w : words - 1) * V;  // in bounds when idle
+  const int j_lo = rank * p.Jb;                      // this block's jobs
+  const int nj = max(0, min(p.J, j_lo + p.Jb) - j_lo);
+  const int chunks = (N + p.chunk - 1) / p.chunk;
+
+  for (int i = tid; i < 3 * 32 * V; i += kThreads) (&cnt[0][0])[i] = 0;
+  for (int i = tid; i < nj * 32; i += kThreads) anyw[i] = 0;
+  int jobs_l[V], active_l[V], coact_l[V];
+#pragma unroll
+  for (int b = 0; b < V; ++b) jobs_l[b] = active_l[b] = coact_l[b] = 0;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int lo = c * p.chunk;
+    const int hi = min(N, lo + p.chunk);
+    for (int i = tid; i < (hi - lo) * 32; i += kThreads) state[i] = 0;
+    __syncthreads();
+    // this warp's steps [s_lo, s_hi) of the chunk, for every job of the
+    // block: items (job group g, step batch b), the next one's loads in
+    // flight while this one folds
+    const int per = (hi - lo + kWarps - 1) / kWarps;
+    const int s_lo = lo + warp * per;
+    const int s_hi = min(hi, s_lo + per);
+    const int nb = (s_hi - s_lo + kSteps - 1) / kSteps;
+    const int items = s_lo < s_hi ? nb * ((nj + kJobs - 1) / kJobs) : 0;
+    auto load = [&](int i, uint32_t (&x)[kJobs][kSteps]) {
+      const int g = i / nb;
+      const int n0 = s_lo + (i - g * nb) * kSteps;
+#pragma unroll
+      for (int q = 0; q < kJobs; ++q) {
+        const int jl = g * kJobs + q;
+        if (jl < nj) {  // warp-uniform; the batch's loads are unconditional
+          const uint8_t* a = p.act + (long long)(j_lo + jl) * N * CS + col;
+#pragma unroll
+          for (int t = 0; t < kSteps; ++t)
+            x[q][t] = load_word<V>(a, min(n0 + t, s_hi - 1) * CS);
+        } else {
+#pragma unroll
+          for (int t = 0; t < kSteps; ++t) x[q][t] = 0;
+        }
+      }
+    };
+    uint32_t x[kJobs][kSteps];
+    uint32_t any[kJobs] = {};
+    if (items) load(0, x);
+    for (int i = 0; i < items; ++i) {
+      uint32_t xn[kJobs][kSteps];
+      if (i + 1 < items) load(i + 1, xn);
+      const int g = i / nb;
+      const int b = i - g * nb;
+      const int n0 = s_lo + b * kSteps;
+      uint32_t sum = 0;
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        const int n = n0 + t;
+        if (valid && n < s_hi) {  // (step n, this word) is this lane's alone
+          uint32_t* sp = &state[(n - lo) * 32 + lane];
+          const uint32_t st = *sp;
+          uint32_t one = st & kOnes, two = (st >> 1) & kOnes;
+#pragma unroll
+          for (int q = 0; q < kJobs; ++q) {
+            const uint32_t xv = x[q][t];
+            two |= one & xv;
+            one |= xv;
+            any[q] |= xv;
+            sum += xv;  // each byte <= kJobs * kSteps: no carry
+          }
+          *sp = one | (two << 1);
+        }
+      }
+      add_bytes<V>(active_l, sum);
+      if (b == nb - 1) {  // the group's last batch: its jobs' any
+#pragma unroll
+        for (int q = 0; q < kJobs; ++q) {
+          const int jl = g * kJobs + q;
+          if (jl < nj && any[q]) atomicOr(&anyw[jl * 32 + lane], any[q]);
+          any[q] = 0;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kJobs; ++q) {
+#pragma unroll
+        for (int t = 0; t < kSteps; ++t) x[q][t] = xn[q][t];
+      }
+    }
+    __syncthreads();
+    cluster.sync();  // every block's step array is whole
+    // this block's share of the steps: fold the CL arrays, count >= 2
+    for (int n = lo + rank * kWarps + warp; n < hi; n += CL * kWarps) {
+      // the CL words load together, then fold (absent blocks read as 0)
+      uint32_t one = 0, two = 0, st[kWideCluster];
+#pragma unroll
+      for (int r = 0; r < kWideCluster; ++r)
+        st[r] = r < CL ? *cluster.map_shared_rank(&state[(n - lo) * 32 + lane], r) : 0u;
+#pragma unroll
+      for (int r = 0; r < kWideCluster; ++r) {
+        const uint32_t o = st[r] & kOnes;
+        two |= ((st[r] >> 1) & kOnes) | (one & o);
+        one |= o;
+      }
+      add_bytes<V>(coact_l, two);
+    }
+    cluster.sync();  // no block rewrites its array while another reads it
+  }
+  // the blocks' jobs are disjoint: each block counts its own
+  for (int jl = warp; jl < nj; jl += kWarps) add_bytes<V>(jobs_l, anyw[jl * 32 + lane]);
+
+#pragma unroll
+  for (int b = 0; b < V; ++b) {
+    const int k = lane * V + b;
+    if (jobs_l[b]) atomicAdd(&cnt[0][k], jobs_l[b]);
+    if (active_l[b]) atomicAdd(&cnt[1][k], active_l[b]);
+    if (coact_l[b]) atomicAdd(&cnt[2][k], coact_l[b]);
+  }
+  __syncthreads();
+  cluster.sync();
+  if (rank == 0 && tid < 32 * V) {
+    const long long cs = (long long)tile * 32 * V + tid;
+    if (cs < CS) {
+      int sums[3] = {0, 0, 0};
+      for (int r = 0; r < CL; ++r) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) sums[k] += *cluster.map_shared_rank(&cnt[k][tid], r);
+      }
+      const int c = static_cast<int>(cs / p.S);
+      const int s = static_cast<int>(cs - (long long)c * p.S);
+      const long long o = (long long)s * p.C + c;
+      p.jobs[o] = sums[0];
+      p.active[o] = sums[1];
+      p.coact[o] = sums[2];
+    }
+  }
+  cluster.sync();  // the leader has read every block's counts
+}
+
+// Jobs per block, steps per chunk and shared bytes for clusters of p.CL.
+template <int V>
+cudaError_t size_for(Params& p, int optin, size_t& smem) {
+  p.Jb = (p.J + p.CL - 1) / p.CL;
+  // a block per SM (its registers allow no more): the step array takes
+  // the shared memory the statics and the job array leave, in chunks of
+  // equal size where the window needs more than one
+  const long long row = 32 * sizeof(uint32_t);
+  const long long room = optin / row - 3 * V - p.Jb;
+  if (room < 1) return cudaErrorInvalidValue;
+  const long long chunks = (p.N + room - 1) / room;
+  p.chunk = static_cast<int>((p.N + chunks - 1) / chunks);
+  smem = static_cast<size_t>(row * (p.Jb + p.chunk));
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(coact_kernel<V>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int V>
+cudaError_t launch(Params p, cudaStream_t st) {
+  const long long CS = (long long)p.C * p.S;
+  const long long tiles = (CS / V + 31) / 32;
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  size_t smem = 0;
+  p.CL = min(kCluster, p.J);
+  if (kWideCluster > kCluster && p.J > kCluster && tiles * kCluster < sms) {
+    // few tiles: a wider cluster puts more SMs on each, where the card
+    // can schedule it
+    p.CL = min(kWideCluster, p.J);
+    err = cudaFuncSetAttribute(coact_kernel<V>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) err = size_for<V>(p, optin, smem);
+    int most = 0;
+    if (err == cudaSuccess) {
+      cfg.gridDim = dim3(static_cast<unsigned>(tiles * p.CL));
+      cfg.dynamicSmemBytes = smem;
+      err = cudaOccupancyMaxPotentialClusterSize(&most, coact_kernel<V>, &cfg);
+    }
+    if (err != cudaSuccess || most < p.CL) {
+      cudaGetLastError();  // not available here: the portable size
+      p.CL = min(kCluster, p.J);
+    }
+  }
+  err = size_for<V>(p, optin, smem);
+  if (err != cudaSuccess) return err;
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * p.CL));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.CL);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, coact_kernel<V>, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches both kernels on `stream`.  Returns cudaGetLastError() after
-// the launches: 0 when both were accepted.
-int coact_launch(const void* act, void* seen, void* jobs, void* coact,
-                 void* active, int J, int N, int C, int S, void* stream) {
+// Launches the kernel on `stream`: input act [J, N, C, S], outputs jobs,
+// coact and active [S, C], each entry written once.  Returns the launch's
+// error, else cudaGetLastError() after it: 0 when it was accepted.
+int coact_launch(const void* act, void* jobs, void* coact, void* active,
+                 int J, int N, int C, int S, void* stream) {
   Params p;
   p.act = static_cast<const uint8_t*>(act);
-  p.seen = static_cast<uint8_t*>(seen);
   p.jobs = static_cast<int*>(jobs);
   p.coact = static_cast<int*>(coact);
   p.active = static_cast<int*>(active);
@@ -119,15 +338,13 @@ int coact_launch(const void* act, void* seen, void* jobs, void* coact,
   p.C = C;
   p.S = S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long cols = (long long)C * S;
+  const long long CS = (long long)C * S;
 
   cudaGetLastError();  // clear any stale error from earlier work
-  const dim3 grid(static_cast<unsigned>((cols + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((N + kSteps - 1) / kSteps));
-  coact_steps_kernel<<<grid, kThreads, 0, st>>>(p);
-  const int threads = 256;
-  coact_jobs_kernel<<<static_cast<unsigned>((cols + threads - 1) / threads),
-                      threads, 0, st>>>(p);
+  const cudaError_t err = (CS % 4 == 0 && CS >= kVecColumns)
+                              ? launch<4>(p, st)
+                              : launch<1>(p, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,4 +61,53 @@ struct StagePrefix {
   }
 };
 
+// The same order on a warp that holds whole ranks, E consecutive stages
+// a lane (lane = (rank, lp), stages lp*E .. lp*E + E - 1; S <= 2 * kBlock
+// and kBlock a multiple of E; `lane0` the lane of its rank's stage 0):
+// B chains side by side, from the values v[b] into the prefixes x[b].  A
+// lane takes the ordered prefix of its own stages; then in round k the
+// lane k of each block of kBlock stages adds its values, in order, to the
+// prefix of the stage before its first, which the lane before it holds:
+// each add is made once, in StagePrefix's order.  Past kBlock stages the
+// second block adds the first block's total.  Every lane of the warp must
+// call it.
+template <int E, int B>
+__device__ __forceinline__ void warp_stage_prefix(const float (&v)[B][E],
+                                                  float (&x)[B][E], int lp,
+                                                  int lane0, int S) {
+  constexpr int kLanes = kBlock / E;  // lanes of a block
+  const int L = (S + E - 1) / E;      // lanes of a rank
+  const int lpos = lp % kLanes;
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    x[b][0] = v[b][0];
+#pragma unroll
+    for (int e = 1; e < E; ++e) x[b][e] = x[b][e - 1] + v[b][e];
+  }
+#pragma unroll
+  for (int k = 1; k < kLanes; ++k) {
+    if (k < L) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const float up = __shfl_up_sync(0xffffffffu, x[b][E - 1], 1);
+        if (lpos == k) {
+          x[b][0] = up + v[b][0];
+#pragma unroll
+          for (int e = 1; e < E; ++e) x[b][e] = x[b][e - 1] + v[b][e];
+        }
+      }
+    }
+  }
+  if (S > kBlock) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const float total = __shfl_sync(0xffffffffu, x[b][E - 1], lane0 + kLanes - 1);
+      if (lp >= kLanes) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[b][e] = total + x[b][e];
+      }
+    }
+  }
+}
+
 }  // namespace

@@ -46,7 +46,6 @@ __all__ = [
     "whatif_matrix_kernel",
 ]
 
-_THREADS = 128  # ranks per block of the frontier kernel: one rank tile
 
 #: launches of each kernel of this module: its CUDA wrapper adds one per
 #: launch and nothing else touches it (callers reset the counts to 0 to
@@ -106,6 +105,8 @@ def _bind_frontier(lib: ctypes.CDLL) -> None:
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.frontier_window_launch.restype = ctypes.c_int
+    lib.frontier_window_tiles.argtypes = [ctypes.c_int] * 2
+    lib.frontier_window_tiles.restype = ctypes.c_int
     lib.frontier_window_error_string.argtypes = [ctypes.c_int]
     lib.frontier_window_error_string.restype = ctypes.c_char_p
 
@@ -117,7 +118,9 @@ def _frontier_cuda(x: TickInputs):
     _lib.check_tensor(x.bd, "bd", (jn, n, r, s), torch.float32, dev,
                       contiguous=False)
     lib = _lib.load_library("frontier_window.cu", _bind_frontier)
-    tiles = -(-r // _THREADS)
+    # the kernel's own rule: one block over every rank (no partials), or
+    # rank tiles and a fold of their partials
+    tiles = lib.frontier_window_tiles(r, s)
     types = (torch.float32, torch.int32, torch.float32, torch.float32)
     out = [torch.empty((jn, n, s), dtype=t, device=dev) for t in types]
     parts = out

@@ -133,7 +133,8 @@ def tiered_co_activation_ref(
 
 def _bind(lib: ctypes.CDLL) -> None:
     """Declare the C interface of `csrc/coactivation.cu`."""
-    lib.coact_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    # act, then the outputs jobs, coact and active; J, N, C, S; the stream
+    lib.coact_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p
     ]
     lib.coact_launch.restype = ctypes.c_int
@@ -159,16 +160,13 @@ def _co_activation_cuda(act: torch.Tensor) -> CoActivationPacket:
         z = torch.zeros((s, h), **zeros)
         return CoActivationPacket(z, z.clone(), z.clone())
     lib = _lib.load_library(_SOURCE, _bind)
-    seen = torch.zeros((jn, h, s), dtype=torch.uint8, device=dev)
-    jobs = torch.empty((s, h), **zeros)
-    coact = torch.zeros((s, h), **zeros)
-    active = torch.zeros((s, h), **zeros)
+    # the kernel writes every entry once: no scratch, nothing zeroed
+    jobs, coact, active = (torch.empty((s, h), **zeros) for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.coact_launch(
-            act.data_ptr(), seen.data_ptr(), jobs.data_ptr(),
-            coact.data_ptr(), active.data_ptr(), jn, n, h, s,
-            ctypes.c_void_p(stream),
+            act.data_ptr(), jobs.data_ptr(), coact.data_ptr(),
+            active.data_ptr(), jn, n, h, s, ctypes.c_void_p(stream),
         )
     if rc != 0:
         msg = lib.coact_error_string(rc).decode()

@@ -89,7 +89,9 @@ def _assert_tick_close(got, want, ctx):
 #: (J, N, R, S) and a sync set: the service's six-stage schema, a rank
 #: past one tile, one rank, 18 / 33 stages (a barrier past bit 31), and
 #: R*S = 910, no multiple of 128, with the last stage synced, over 9 steps
-#: and over a single step
+#: and over a single step; one rank at six stages; and (a third element,
+#: `_TIED_RANKS`) a window whose max is tied between ranks in different
+#: 32-lane groups
 _ROUTE_CASES = [
     ((2, 4, 8, 6), (2,)),
     ((2, 3, 129, 5), (1, 4)),
@@ -98,24 +100,44 @@ _ROUTE_CASES = [
     ((2, 3, 5, 33), tuple(range(2, 33, 3)) + (32,)),
     ((3, 9, 130, 7), (2, 6)),
     ((2, 1, 130, 7), (2, 6)),
+    ((3, 5, 1, 6), (2,)),
+    ((2, 3, 70, 6), (2,), "tied"),
 ]
-_ROUTE_IDS = ["6st", "r129", "r1", "18st", "33st", "r130s7", "n1"]
+_ROUTE_IDS = ["6st", "r129", "r1", "18st", "33st", "r130s7", "n1", "r1s6",
+              "ties"]
+#: the ranks that share the window's max in a "tied" case: a frontier
+#: kernel's lanes hold whole ranks, so at six stages these fall in three
+#: different 32-lane groups
+_TIED_RANKS = (5, 37, 69)
+
+
+def _route_window(case, seed):
+    """The window of a `_ROUTE_CASES` entry.  A "tied" case copies one row
+    above every rank's (the stagewise max plus 0.5) into `_TIED_RANKS` at
+    every (job, step): their stage prefixes tie at the max at every stage,
+    so the leader is the lowest of them and the second equals the max."""
+    shape = case[0]
+    d = _window(shape, seed)
+    if case[2:] == ("tied",):
+        d[:, :, list(_TIED_RANKS), :] = d.max(axis=2, keepdims=True) + 0.5
+    return d
 
 
 class TestKernelRoutes:
     @pytest.mark.parametrize("case", _ROUTE_CASES, ids=_ROUTE_IDS)
     def test_fleet_frontier_window(self, case):
-        shape, _ = case
-        d = _window(shape, seed=sum(shape))
-        _assert_fields_close(
-            port.fleet_frontier_window(d, device="cpu"),
-            jref.fleet_frontier_window(d), f"{shape}",
-        )
+        shape = case[0]
+        d = _route_window(case, seed=sum(shape))
+        got = port.fleet_frontier_window(d, device="cpu")
+        _assert_fields_close(got, jref.fleet_frontier_window(d), f"{shape}")
+        if case[2:] == ("tied",):  # the lowest tied rank leads, gap 0
+            assert (got.leader == _TIED_RANKS[0]).all()
+            assert (got.gap == 0).all()
 
     @pytest.mark.parametrize("case", _ROUTE_CASES, ids=_ROUTE_IDS)
     def test_fleet_whatif_matrix(self, case):
-        shape, sync = case
-        d = _window(shape, seed=sum(shape) + 1)
+        shape, sync = case[:2]
+        d = _route_window(case, seed=sum(shape) + 1)
         _assert_fields_close(
             port.fleet_whatif_matrix(d, sync_stages=sync, device="cpu"),
             jref.fleet_whatif_matrix(d, sync_stages=sync), f"{shape}",
@@ -123,8 +145,8 @@ class TestKernelRoutes:
 
     @pytest.mark.parametrize("case", _ROUTE_CASES, ids=_ROUTE_IDS)
     def test_fleet_regime_stats(self, case):
-        shape, sync = case
-        d = _window(shape, seed=sum(shape) + 2)
+        shape, sync = case[:2]
+        d = _route_window(case, seed=sum(shape) + 2)
         got = port.fleet_regime_stats(d, sync_stages=sync, device="cpu")
         want = jref.fleet_regime_stats(d, sync_stages=sync)
         _assert_fields_close(got, want, f"{shape}")

@@ -4,12 +4,14 @@
 of the `repro` package; the port's entry points run on CUDA unless asked
 for the CPU, and without a GPU they raise instead of carrying on.
 """
+import ctypes
 import json
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -172,6 +174,31 @@ def test_fused_and_whatif_kernels_share_the_cell_walk():
         text = _lib.kernel_source(name).read_text()
         assert '#include "cell_walk.cuh"' in text, name
         assert "cell_warp_kernel" not in text and "cell_slab_kernel" not in text, name
+
+
+def test_frontier_kernel_takes_its_prefix_from_the_shared_header():
+    """The four-dispatch frontier kernel must add its stage prefixes in the
+    fused route's order, so it takes them from `frontier_common.cuh`
+    (the warp fold's shuffle chain, the rank tiles' `StagePrefix`) and
+    keeps no copy of its own."""
+    text = _lib.kernel_source("frontier_window.cu").read_text()
+    assert '#include "frontier_common.cuh"' in text
+    assert "warp_stage_prefix(" in text and "StagePrefix pfx" in text
+    common = _lib.kernel_source("frontier_common.cuh").read_text()
+    for name in ("struct StagePrefix", "void warp_stage_prefix"):
+        assert name in common and name not in text, name
+
+
+def test_coactivation_interface_has_no_scratch():
+    """`coact_launch` takes the activity tensor, the three outputs and the
+    shape: no scratch buffer to allocate or zero."""
+    lib = types.SimpleNamespace(coact_launch=types.SimpleNamespace(),
+                                coact_error_string=types.SimpleNamespace())
+    coactivation._bind(lib)
+    pointer, integer = ctypes.c_void_p, ctypes.c_int
+    # act; jobs, coact, active; J, N, C, S; the stream
+    assert lib.coact_launch.argtypes == [pointer] * 4 + [integer] * 4 + [pointer]
+    assert lib.coact_launch.restype is integer
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

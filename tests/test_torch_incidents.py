@@ -33,8 +33,12 @@ RTOL = 1e-4
 _FIELDS = ("jobs", "coact", "active")
 
 # J = 1, H = 1, H past one 128-lane tile, S not a multiple of 8 (5, 9)
+#: (J, N, H, S); the last three are the CUDA kernel's edges at narrow
+#: widths: job counts no multiple of its job split (67, 130), one step,
+#: and 33 columns, no multiple of its column tile
 _SHAPES = [(1, 1, 1, 1), (1, 5, 4, 6), (2, 5, 4, 6), (3, 7, 130, 6),
-           (4, 8, 9, 9), (3, 6, 1, 5), (5, 12, 17, 5)]
+           (4, 8, 9, 9), (3, 6, 1, 5), (5, 12, 17, 5),
+           (67, 3, 5, 6), (130, 2, 3, 2), (4, 1, 33, 1)]
 
 
 def _act(shape, seed, p=0.3):
