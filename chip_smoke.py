@@ -21,8 +21,10 @@ package — in these phases, and exits non-zero if any fails:
            ranks, the max tied between ranks of different rank groups,
            warps and rank tiles, where the frontier kernel must also name
            the lowest tied rank), the accumulation-expanded 18/27/33-stage
-           schemas, a window fed values around FLT_MIN, and a fleet-scale
-           shape: bit for bit on every field; times both with CUDA events
+           schemas, 300 stages, 2,400 and 2,500 stages (around the cell
+           walk's former shared-memory limit, with regimes and hosts), a
+           window fed values around FLT_MIN, and a fleet-scale shape: bit
+           for bit on every field; times both with CUDA events
            (L2 flushed before every launch) beside the byte bound at 3.35
            TB/s, and the whole `fused_fleet_tick` call (prolog + kernel +
            epilog) on the host clock.  At every case it also holds the
@@ -59,8 +61,10 @@ package — in these phases, and exits non-zero if any fails:
            (one job, 67 and 130 jobs, one host, one step, 37 steps, five
            stages, C*S = 111 and 1,200, all ones, all zeros, one job alone
            on a column, 800 to 2,500 steps (one or two chunks of the
-           kernel's step array), tiers with unmapped hosts) and a
-           fleet-scale shape, timed as above;
+           kernel's step array), tiers with unmapped hosts), many jobs
+           (32,768 x 20 x 4 x 2 in 16-block clusters, 16,384 x 4 x 68 x 8
+           in 8-block ones: the job array in chunks; 32,768 x 2,000 x 1 x
+           2: act read twice) and a fleet-scale shape, timed as above;
   groups   the inputs the fabric, service and fused replay runs handed
            the fused kernel and the tick and four-dispatch replay runs
            handed each single-family kernel, recorded at each (shape, sync
@@ -74,6 +78,13 @@ package — in these phases, and exits non-zero if any fails:
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --keep-going
+
+measures a tree that refuses or fails some kernel or co-activation cases
+(an older checkout, to time it beside this one): each such kernel
+measurement prints a `failed` line with its error and the rest go on;
+the script still exits non-zero and prints no result when any failed.
 """
 from __future__ import annotations
 
@@ -148,6 +159,11 @@ REPLAY_ARGS = ["--synth", "--jobs", "64", "--ranks", "128", "--window", "100",
 REPLAY_VOLATILE = ("elapsed_s", "windows_per_s", "obs", "tick_path")
 #: the shared uplink of `serve_fleet --topology fabric`
 FABRIC_SWITCH = "fab-sw0"
+#: with --keep-going: the kernel measurements that failed, and the
+#: errors that count as a failed measurement rather than a crash
+FAILURES = []
+CASE_ERRORS = ()
+
 #: relative tolerance of the float sums the service reports
 #: (recoverable_s, exposure_s, score): the epilog sums in another order
 #: on the card than on the CPU
@@ -165,6 +181,18 @@ def accumulation_syncs(m: int):
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def attempt(label, fn):
+    """`fn()`; with --keep-going a launch refusal or a mismatch is
+    printed and recorded in FAILURES instead, and gives None."""
+    try:
+        return fn()
+    except CASE_ERRORS as e:
+        FAILURES.append(label)
+        print("failed " + json.dumps(dict(label=label, error=str(e)[:300])),
+              flush=True)
+        return None
 
 
 def kernel_cases():
@@ -238,9 +266,14 @@ def many_stage_cases():
                     (8, 50, 200, s), dict(sync_stages=sync, hosts=7)))
         out.append((f"{s} stages, service call", (32, 100, 128, s),
                     dict(sync_stages=sync, with_regimes=False)))
-    # past 256 stages the prefix nests blocks of blocks
+    # past 256 stages the prefix nests blocks of blocks, at 2,400 and 2,500
+    # two levels deep; 2,400 stages sit just under the former slab walk's
+    # shared-memory limit, 2,500 past it
     out.append(("edge, 300 stages", (2, 6, 40, 300),
                 dict(sync_stages=(17, 150, 299), hosts=3)))
+    for s in (2400, 2500):
+        out.append((f"edge, {s} stages", (2, 6, 40, s),
+                    dict(sync_stages=(17, 300, s - 1), hosts=3)))
     return out
 
 
@@ -479,7 +512,7 @@ def fused_case(torch, fused, x, flush):
     )
 
 
-def four_dispatch_case(torch, fused, kernels, x, kw, flush):
+def four_dispatch_case(torch, fused, kernels, label, x, kw, flush):
     """The three single-family kernels against their plain versions on
     the same inputs (bit for bit), timed beside their byte bounds; then
     `four_dispatch_tick` against `fused_fleet_tick` on the card, bit for
@@ -488,15 +521,20 @@ def four_dispatch_case(torch, fused, kernels, x, kw, flush):
     xr = x
     if x.thr is None:
         xr = fused.tick_inputs(x.d, **{**kw, "with_regimes": True})
-    out = {
-        name: family_case(torch, kernels, name,
-                          xr if name == "regime_stats" else x, flush)
-        for name in FOUR_DISPATCH
-    }
-    four = fused.four_dispatch_tick(x.d, **kw)
-    one = fused.fused_fleet_tick(x.d, **kw)
-    torch.cuda.synchronize()
-    assert_packets_bitwise(four, one, torch, "four-dispatch vs fused")
+    out = {}
+    for name in FOUR_DISPATCH:
+        row = attempt(f"{label} {name}", lambda: family_case(
+            torch, kernels, name, xr if name == "regime_stats" else x, flush))
+        if row is not None:
+            out[name] = row
+
+    def routes_agree():
+        four = fused.four_dispatch_tick(x.d, **kw)
+        one = fused.fused_fleet_tick(x.d, **kw)
+        torch.cuda.synchronize()
+        assert_packets_bitwise(four, one, torch, "four-dispatch vs fused")
+
+    attempt(f"{label} four-dispatch vs fused", routes_agree)
     return out
 
 
@@ -563,30 +601,36 @@ def kernel_phase(torch, np, fused, kernels, flush):
             f, fl, fs, _ = kernels._frontier_cuda(x)
             if not (bool((fl == min(tied)).all()) and torch.equal(fs, f)):
                 raise AssertionError(f"{label}: the lowest tied rank must lead")
-        (got, want), measured = fused_case(torch, fused, x, flush)
-        pg, pw = fused._epilog(x, got), fused._epilog(x, want)
-        for fam in ("frontier", "whatif", "regimes", "coact"):
-            a, b = getattr(pg, fam), getattr(pw, fam)
-            if a is None:
-                continue
-            for name, u, v in zip(a._fields, a, b):
-                if u.dtype.is_floating_point:
-                    torch.testing.assert_close(
-                        u, v, rtol=1e-5, atol=1e-6, msg=f"{fam}.{name}"
-                    )
-                elif not torch.equal(u, v):
-                    raise AssertionError(f"{fam}.{name} differs")
-        # the whole public call (prolog + kernel + epilog) from a CUDA tensor
-        d_cuda = x.d
-        tick_ms = wall_ms(
-            lambda: fused.fused_fleet_tick(d_cuda, **kw), 5, torch
-        )
+
+        def fused_checked():
+            (got, want), measured = fused_case(torch, fused, x, flush)
+            pg, pw = fused._epilog(x, got), fused._epilog(x, want)
+            for fam in ("frontier", "whatif", "regimes", "coact"):
+                a, b = getattr(pg, fam), getattr(pw, fam)
+                if a is None:
+                    continue
+                for name, u, v in zip(a._fields, a, b):
+                    if u.dtype.is_floating_point:
+                        torch.testing.assert_close(
+                            u, v, rtol=1e-5, atol=1e-6, msg=f"{fam}.{name}"
+                        )
+                    elif not torch.equal(u, v):
+                        raise AssertionError(f"{fam}.{name} differs")
+            # the whole public call (prolog + kernel + epilog) from a CUDA
+            # tensor
+            measured["tick_ms"] = wall_ms(
+                lambda: fused.fused_fleet_tick(x.d, **kw), 5, torch
+            )
+            return measured
+
+        measured = attempt(f"{label} fused_tick", fused_checked) or {}
         row = dict(
             label=label, shape=list(shape),
             sync=list(kw.get("sync_stages") or ()),
             regimes=bool(kw.get("with_regimes", True)), hosts=hosts,
-            **measured, tick_ms=tick_ms,
-            four_dispatch=four_dispatch_case(torch, fused, kernels, x, kw, flush),
+            **measured,
+            four_dispatch=four_dispatch_case(
+                torch, fused, kernels, label, x, kw, flush),
         )
         rows.append(row)
         print("kernel case " + json.dumps(row), flush=True)
@@ -722,10 +766,35 @@ def coact_cases(torch, groups, replay_groups):
         ("edge, 140 jobs x 800 steps", act((140, 800, 3, 2), p=0.1)),
         ("edge, 2500 steps", act((40, 2500, 8, 2))),
         ("edge, 140 jobs x 2000 steps", act((140, 2000, 3, 2), p=0.1)),
+        # past the job array's former shared-memory limit: 16-block
+        # clusters (one column tile), 8-block ones (17 tiles), and a
+        # window past one step chunk as well (act read twice, 131 MB)
+        ("many jobs, 32768 x 20 x 4 x 2", act((32768, 20, 4, 2), p=0.1)),
+        ("many jobs, 16384 x 4 x 68 x 8", act((16384, 4, 68, 8), p=0.1)),
+        ("many jobs, 32768 x 2000 x 1 x 2", act((32768, 2000, 1, 2), p=0.05)),
     ]
     # 256 jobs x 400 steps x (512 hosts + 64 switches + 8 pods) x 8 stages
     cases.append(("fleet scale", act((256, 400, 512 + 64 + 8, 8), p=0.05)))
     return cases
+
+
+def coact_check(torch, coact, label, a) -> float:
+    """The co-activation kernel against its plain version on `a`,
+    exactly; returns the largest error (0)."""
+    got = coact._co_activation_cuda(a)
+    torch.cuda.synchronize()
+    want = coact._co_activation_plain(a)
+    err = family_err(got, want, torch)
+    for name, u, v in zip(got._fields, got, want):
+        if not torch.equal(u, v):
+            raise AssertionError(
+                f"{label}: {name}: {(u != v).sum().item()} entries differ"
+            )
+    if label == "edge, one job on a column" and [
+        int(t[4, 2]) for t in got
+    ] != [1, 0, 25]:
+        raise AssertionError(f"{label}: {[int(t[4, 2]) for t in got]}")
+    return err
 
 
 def coact_phase(torch, np, coact, groups, replay_groups, flush):
@@ -751,19 +820,9 @@ def coact_phase(torch, np, coact, groups, replay_groups, flush):
                   torch.cat(segments, dim=2).contiguous()))
     rows = []
     for label, a in cases:
-        got = coact._co_activation_cuda(a)
-        torch.cuda.synchronize()
-        want = coact._co_activation_plain(a)
-        err = family_err(got, want, torch)
-        for name, u, v in zip(got._fields, got, want):
-            if not torch.equal(u, v):
-                raise AssertionError(
-                    f"{label}: {name}: {(u != v).sum().item()} entries differ"
-                )
-        if label == "edge, one job on a column" and [
-            int(t[4, 2]) for t in got
-        ] != [1, 0, 25]:
-            raise AssertionError(f"{label}: {[int(t[4, 2]) for t in got]}")
+        err = attempt(f"coact {label}", lambda: coact_check(torch, coact, label, a))
+        if err is None:
+            continue
         ms = time_ms(lambda: coact._co_activation_cuda(a), 20, torch, flush)
         plain_ms = time_ms(lambda: coact._co_activation_plain(a), 3, torch, flush)
         j, n, h, s = a.shape
@@ -973,9 +1032,18 @@ def kernel_row(name, launches, rows, main_row):
 
 
 def main() -> int:
+    global CASE_ERRORS
+    import argparse
+
     import numpy as np
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--keep-going", action="store_true",
+                        help="record a failed kernel measurement and go on; "
+                             "exit non-zero at the end if any failed")
+    if parser.parse_args().keep_going:
+        CASE_ERRORS = (RuntimeError, AssertionError)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     src = os.path.join(ROOT, "src")
@@ -1026,10 +1094,12 @@ def main() -> int:
     fused_rows = fused_group_phase(torch, fused, "main-path", fused_groups, flush)
     tick_rows = group_phase(torch, kernels, "tick", tick_groups, flush)
     replay_rows = group_phase(torch, kernels, "replay", replay_groups, flush)
-    case_rows = {name: [r["four_dispatch"][name] for r in rows]
-                 for name in FOUR_DISPATCH}
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
+    if FAILURES:
+        fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
+    case_rows = {name: [r["four_dispatch"][name] for r in rows]
+                 for name in FOUR_DISPATCH}
 
     print(json.dumps({"kernels": [
         # the service's own DDP group shape; the fabric run's first group

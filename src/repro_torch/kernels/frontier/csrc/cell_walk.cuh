@@ -1,8 +1,9 @@
 // The cell walk: the families of the fleet tick that carry state across
 // steps, one thread per (job, rank, stage) cell of a stacked window tensor
-// d[J, N, R, S].  Shared by `fused_tick.cu` (what-if, regimes, hosts) and
-// `whatif_matrix.cu` (what-if alone), so the two routes run the same adds
-// in the same order and agree bit for bit.
+// d[J, N, R, S].  Shared by `fused_tick.cu` (what-if, regimes, hosts),
+// `whatif_matrix.cu` (what-if alone) and `regime_stats.cu` (regimes
+// alone), so the routes run the same adds in the same order and agree bit
+// for bit.
 //
 //   what-if  W = sum over steps, in step order, of
 //            max(0, amax - max(other, arr - excess_w)), arr = relprev +
@@ -19,35 +20,35 @@
 // nothing from other ranks but its own rank's stage prefix, so the cells
 // are independent and the step walk is the only serial chain.  Each
 // thread walks the N steps in order with its what-if sum, its seven
-// regime statistics and its host in registers, and writes its outputs
-// once, at the end.  Two kernels share that fold:
+// regime statistics and its host in registers (`CellState`, the one fold
+// of every route), and writes its outputs once, at the end.  The steps go
+// in batches whose loads are independent and issue up front, the next
+// batch's window loads in flight while this one folds.  The template flag
+// WIF turns the what-if family on; without it no stage prefix is needed
+// and the walk reads none of the boundary rows.  Two walks:
 //
-//   warp walk (S <= 32)  a warp holds whole ranks, floor(32 / S) of them,
-//     lane = (rank, stage), so its loads of a step are one contiguous run
-//     of d.  The stage prefix is a chain of shuffles: in round k the lane
-//     of stage k adds its w to the prefix of stage k - 1, so each add is
-//     made once per (rank, step, stage), in the reference's order (two
-//     chains of 16 and a block total past 16 stages, as `StagePrefix`).
-//     The segment end's prefix and the previous barrier's come by
-//     shuffle too.  No shared memory and no block barrier: the steps go
-//     in batches of kWarpBatch, whose loads are independent, the next
-//     batch's window loads in flight while this one folds.
-//   slab walk (S > 32)   grid (ceil(R*S / 128), J), neighbouring threads on
-//     neighbouring cells of a step's [R, S] slab.  A block copies a
-//     batch's slabs (the rows of the ranks its cells touch, whole), its
-//     cells' baselines and the batch's [S] rows into a ring of shared
-//     memory with cp.async, two batches ahead of the fold; one thread per
-//     (step, rank) pair takes the rank's prefix once (`StagePrefix`) and
-//     writes each stage's segment prefix beside the slab; then each cell
-//     folds the batch's steps in order.  Shared memory per block:
-//     4 * (3 K * (slab + 128 + 5 S) + K * slab) bytes + S, slab =
-//     (127 / S + 2) * S floats; K (8 at most) halves while that passes
-//     64 KB, and past 48 KB the launcher opts in, so S may reach about
-//     2,400 stages on an H100 (227 KB), beyond which the launch fails
-//     with cudaErrorInvalidValue.
+//   warp walk (what-if, S <= 32)  a warp holds whole ranks, floor(32 / S)
+//     of them, lane = (rank, stage), so its loads of a step are one
+//     contiguous run of d.  The stage prefix is a chain of shuffles: in
+//     round k the lane of stage k adds its w to the prefix of stage k - 1,
+//     so each add is made once per (rank, step, stage), in the reference's
+//     order (two chains of 16 and a block total past 16 stages, as
+//     `StagePrefix`).  The segment end's prefix and the previous
+//     barrier's come by shuffle too.  No shared memory, no block barrier.
+//   flat walk (any S without what-if; what-if past 32 stages)  lane = the
+//     flat (rank, stage) index, so every lane is busy at any S.  With the
+//     what-if family a segment pass goes first: one thread per (job,
+//     step, rank) row takes the rank's prefix in `StagePrefix`'s order,
+//     the row's stages staged through shared memory 32 at a time (a fixed
+//     17 KB, whatever S), and writes each governing segment's
+//     P[end] - P[start - 1] to a scratch row in device memory, which the
+//     wrapper allocates at window size (`cell_scratch_floats`).  The flat
+//     walk is launched with programmatic stream serialization: its prolog
+//     and first window loads run beside the pass, and it waits for the
+//     pass before it reads its cell's segment sums.
 //
-// Either way the segment prefix is P[end] - P[start - 1] with the
-// prolog's adds, and the fold of a batch forms its steps' excesses and
+// Nothing in either walk grows with S but the segment pass's loop, so
+// every S launches.  The fold of a batch forms its steps' excesses and
 // contributions first (they are independent) and then adds them in step
 // order: every float sum is the plain version's chain.
 #pragma once
@@ -60,11 +61,9 @@
 namespace {
 
 constexpr int kCellThreads = 128;
-constexpr int kWarpStages = 32;              // the warp walk's largest S
-constexpr int kWarpBatch = 8;                // steps per batch of the warp walk
-constexpr int kMaxBatch = 8;                 // steps per batch of the slab walk, at most
-constexpr int kSlots = 3;                    // slab-walk batches in shared memory
-constexpr size_t kBatchBudget = 64 * 1024;   // shared bytes a slab batch may take
+constexpr int kWarpStages = 32;  // the warp walk's largest S
+constexpr int kWarpBatch = 8;    // steps per batch of the warp walk
+constexpr int kTileStages = 32;  // stages per shared tile of the segment pass
 constexpr unsigned kFull = 0xffffffffu;
 
 struct CellParams {
@@ -72,13 +71,15 @@ struct CellParams {
   const float* wmin;   // [J, N, S] cross-rank minimum (any [J, N, S]-sized
                        // address when no stage is a sync stage)
   const float* bw;     // what-if / regime baseline, strided view of d's shape
-  const float* amax;   // [J, N, S] governing-boundary release
+  const float* amax;   // [J, N, S] governing-boundary release (what-if)
   const float* sec;    // [J, N, S] governing-boundary second arrival
   const int* lead;     // [J, N, S] governing-boundary leader
   const float* relp;   // [J, N, S] previous segment's release
   const unsigned char* sync;  // [S], 1 on sync stages
   const float* thr;    // [J, R, S] activity threshold (regimes / hosts)
   const int* host;     // [J, R] rank -> host index (hosts)
+  float* seg;          // scratch [J, N, R, S]: row (j, n, r) holds its
+                       // segment sums in stage order (what-if, S > 32)
   float* wif;          // [J, S, R]
   int* count;          // [J, S, R] x5 integer regime statistics
   int* onset;
@@ -90,13 +91,12 @@ struct CellParams {
   int* hostcnt;        // [J, N, S, H], zeroed by the caller
   long long bw_st[4];
   int N, R, S, H;
-  int K;               // steps per batch of the slab walk (set by the launcher)
 };
 
 // What one cell carries across the steps, and its step-ordered fold.
-template <bool REG, bool HOSTS>
+template <bool WIF, bool REG, bool HOSTS>
 struct CellState {
-  float wacc = 0.f, se = 0.f, sp = 0.f;
+  float wacc = 0.f, se = 0.f, sp = 0.f;  // wacc only with WIF
   int cnt = 0, ons = kBig, lst = -1, rns = 0, stk = 0, prv = 0;
   float thr = 0.f;
   int host = -1;
@@ -113,14 +113,14 @@ struct CellState {
   // step n of job j, stage s: its what-if contribution and excess
   __device__ __forceinline__ void add(const CellParams& p, int j, int n,
                                       int s, float contrib, float ew) {
-    wacc = wacc + contrib;
+    if (WIF) wacc = wacc + contrib;
     if (REG || HOSTS) {
       const bool act = ew > thr;
       if (REG) {
         const int ai = act ? 1 : 0;
         cnt += ai;
         ons = act ? min(ons, n) : ons;
-        lst = act ? max(lst, n) : lst;
+        lst = act ? max(lst, n) : lst;  // n grows: the last active step
         rns += ai * (1 - prv);
         stk = act ? stk + 1 : 0;
         prv = ai;
@@ -135,7 +135,7 @@ struct CellState {
   __device__ __forceinline__ void write(const CellParams& p, int j, int r,
                                        int s) const {
     const long long o = ((long long)j * p.S + s) * p.R + r;
-    p.wif[o] = wacc;
+    if (WIF) p.wif[o] = wacc;
     if (REG) {
       p.count[o] = cnt;
       p.onset[o] = ons;
@@ -156,7 +156,7 @@ __device__ __forceinline__ float whatif_contrib(float am, float other,
 }
 
 // ---------------------------------------------------------------------------
-// warp walk: S <= 32
+// warp walk: the what-if family up to 32 stages
 // ---------------------------------------------------------------------------
 
 template <bool REG, bool HOSTS>
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kCellThreads)
   const float* dcell = p.d + ((long long)j * N * R + r) * S + s;  // step 0
   const long long row0 = (long long)j * N * S + s;                 // step 0
   const float* bwc = p.bw + j * p.bw_st[0] + r * p.bw_st[2] + s * p.bw_st[3];
-  CellState<REG, HOSTS> st(p, j, r, s, valid);
+  CellState<true, REG, HOSTS> st(p, j, r, s, valid);
 
   float dcur[K];
 #pragma unroll
@@ -271,237 +271,235 @@ __global__ void __launch_bounds__(kCellThreads)
 }
 
 // ---------------------------------------------------------------------------
-// slab walk: S > 32
+// segment pass and flat walk
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Floats of the largest slab a block copies: the ranks its 128 cells touch.
-__host__ __device__ __forceinline__ int cell_slab_max(int S) {
-  return ((kCellThreads - 1) / S + 2) * S;
-}
-
-// Stride of a step's slab in a slot: odd, so the (step, rank) pairs of a
-// warp read distinct banks.
-__host__ __device__ __forceinline__ int cell_slab_stride(int S) {
-  return cell_slab_max(S) | 1;
-}
-
-// Floats of one slot of K steps: the slabs, the cells' baselines and the
-// five [K, S] rows.
-__host__ __device__ __forceinline__ int cell_slot_len(int S, int K) {
-  return K * (cell_slab_stride(S) + kCellThreads + 5 * S);
-}
-
-// kSlots slots, the K steps' segment prefixes, the sync bytes.
-__host__ __device__ __forceinline__ size_t cell_smem_bytes(int S, int K) {
-  return sizeof(float) * (kSlots * static_cast<size_t>(cell_slot_len(S, K)) +
-                          static_cast<size_t>(K) * cell_slab_max(S)) +
-         static_cast<size_t>(S);
-}
-
-template <bool REG, bool HOSTS>
+// The segment sums of every (job, step, rank) row: row q of the scratch
+// holds, for each governing segment g in stage order, P[end] - P[start -
+// 1] of the imputed work (P[end] for the first), P the prefix in
+// StagePrefix's order.  One thread a row, the prefix state in registers.
+// The block's 128 rows are contiguous in d; they go through shared memory
+// kTileStages stages at a time, a warp load one 128-byte line, the next
+// two tiles' loads in flight while this one's prefixes are taken.
 __global__ void __launch_bounds__(kCellThreads)
-    cell_slab_kernel(const CellParams p) {
-  extern __shared__ float smem[];
-  const int j = blockIdx.y;
+    cell_segment_kernel(const CellParams p, long long rows) {
+  // the flat walk, launched after this pass with programmatic stream
+  // serialization, may start its prolog now (it waits for these sums)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int kWarps = kCellThreads / 32;
+  constexpr int kRowsPerWarp = kCellThreads / kWarps;
+  __shared__ float tile[kCellThreads][kTileStages + 1];  // odd stride: no conflicts
+  __shared__ long long wrow[kCellThreads];  // each row's [S] row of wmin
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int S = p.S;
-  const int N = p.N;
-  const int R = p.R;
-  const int K = p.K;
-  const long long cells = (long long)R * S;
-  const long long c0 = (long long)blockIdx.x * kCellThreads;
-  const long long c = c0 + tid;
-  const bool valid = c < cells;
-  const int r = valid ? static_cast<int>(c / S) : 0;
-  const int s = valid ? static_cast<int>(c - (long long)r * S) : 0;
-  // the ranks this block's cells touch: the slab is their rows, whole
-  const int r_lo = static_cast<int>(c0 / S);
-  const int r_hi = static_cast<int>(min((long long)R - 1, (c0 + kCellThreads - 1) / S));
-  const int nr = r_hi - r_lo + 1;
-  const int slab = nr * S;
-  const int lc = static_cast<int>(c - (long long)r_lo * S);  // cell in the slab
-  const int lmax = cell_slab_max(S);
-  const int lstride = cell_slab_stride(S);
-  const int slot_len = cell_slot_len(S, K);
-  const float* bwc = p.bw + j * p.bw_st[0] + r * p.bw_st[2] + s * p.bw_st[3];
+  const long long q0 = (long long)blockIdx.x * kCellThreads;
+  const long long q = min(q0 + tid, rows - 1);  // idle threads: the last row
+  wrow[tid] = q / p.R * S;
+  float* out = p.seg + q * S;
 
-  // slot: [K slabs of lstride | K x 128 baselines | 5 rows of K x S: amax,
-  // sec, lead, relp, wmin]
-  float* ring = smem;                        // [kSlots][slot_len]
-  float* segp = smem + kSlots * slot_len;    // [K][lmax] segment prefixes
-  unsigned char* sync = reinterpret_cast<unsigned char*>(segp + K * lmax);
-  for (int k = tid; k < S; k += kCellThreads) sync[k] = p.sync[k];
-
-  auto slot = [&](int b) { return ring + (b % kSlots) * slot_len; };
-  auto batch_len = [&](int b) { return min(K, N - b * K); };
-
-  // copy batch b into its slot (cp.async; the caller commits the group)
-  auto issue = [&](int b) {
-    float* sl = slot(b);
-    const int n0 = b * K;
-    const int kb = batch_len(b);
-    const long long jn0 = (long long)j * N + n0;
-    for (int t = 0; t < kb; ++t) {
-      const float* src = p.d + ((jn0 + t) * R + r_lo) * S;
-      float* dst = sl + t * lstride;
-      for (int i = tid; i < slab; i += kCellThreads) cp_async4(dst + i, src + i);
-      if (valid)
-        cp_async4(sl + K * lstride + t * kCellThreads + tid,
-                  bwc + (n0 + t) * p.bw_st[1]);
-    }
-    // the batch's rows are contiguous: [kb, S] of each [J, N, S] row
-    float* rows = sl + K * (lstride + kCellThreads);
-    const long long o = jn0 * S;
-    for (int i = tid; i < kb * S; i += kCellThreads) {
-      cp_async4(rows + i, p.amax + o + i);
-      cp_async4(rows + K * S + i, p.sec + o + i);
-      cp_async4(rows + 2 * K * S + i, p.lead + o + i);
-      cp_async4(rows + 3 * K * S + i, p.relp + o + i);
-      cp_async4(rows + 4 * K * S + i, p.wmin + o + i);
+  // tile k0: lane = stage, warp w loads rows w, w + kWarps, ...; the imputed
+  // work is d, or on a sync stage its step's cross-rank minimum
+  auto load = [&](int k0, float (&v)[kRowsPerWarp], unsigned& bits) {
+    const int kn = min(kTileStages, S - k0);
+    const int k = k0 + min(lane, kn - 1);  // in bounds past the tail
+    bits = __ballot_sync(kFull, lane < kn && p.sync[k] != 0);
+    const bool sy = (bits >> lane) & 1u;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int lr = warp + kWarps * i;
+      const long long row = min(q0 + lr, rows - 1);
+      v[i] = __ldg(sy ? p.wmin + wrow[lr] + k : p.d + row * S + k);
     }
   };
 
-  // one thread per (step, rank) pair of batch b: the segment prefix of
-  // every stage, P[end] - P[start - 1] of the imputed work (P[end] for
-  // the first segment), with the prolog's adds in StagePrefix's order
-  auto prefix = [&](int b) {
-    const float* sl = slot(b);
-    const int kb = batch_len(b);
-    const float* wrows = sl + K * (lstride + kCellThreads) + 4 * K * S;
-    for (int q = tid; q < kMaxBatch * nr; q += kCellThreads) {
-      const int t = q % kMaxBatch;
-      if (t >= kb) continue;
-      const int lr = q / kMaxBatch;
-      const float* row = sl + t * lstride + lr * S;
-      const float* wrow = wrows + t * S;
-      float* out = segp + t * lmax + lr * S;
-      StagePrefix pfx;
-      float pw = 0.f;
-      float base = 0.f;  // prefix at the previous barrier
-      bool has_base = false;
-      int start = 0;
-      for (int k = 0; k < S; ++k) {
-        const bool sy = sync[k] != 0;
-        pw = pfx.next(sy ? wrow[k] : row[k]);
-        if (sy || k == S - 1) {
-          const float seg = has_base ? pw - base : pw;
-          for (int i = start; i <= k; ++i) out[i] = seg;
-          if (sy) {
-            base = pw;
-            has_base = true;
-          }
-          start = k + 1;
+  StagePrefix pfx;
+  float base = 0.f;  // prefix at the previous barrier
+  bool has_base = false;
+  int g = 0;
+  __syncthreads();  // wrow
+  // two tiles in flight: this one's and the next one's loads
+  float v[kRowsPerWarp], vn[kRowsPerWarp];
+  unsigned bits = 0, bits_n = 0;  // the tiles' sync stages
+  load(0, v, bits);
+  if (kTileStages < S) load(kTileStages, vn, bits_n);
+  for (int k0 = 0; k0 < S; k0 += kTileStages) {
+    const int kn = min(kTileStages, S - k0);
+    const unsigned sync_bits = bits;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) tile[warp + kWarps * i][lane] = v[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) v[i] = vn[i];
+    bits = bits_n;
+    if (k0 + 2 * kTileStages < S) load(k0 + 2 * kTileStages, vn, bits_n);
+    if (q0 + tid < rows) {
+      for (int k = 0; k < kn; ++k) {
+        const float pw = pfx.next(tile[tid][k]);
+        if (((sync_bits >> k) & 1u) || k0 + k == S - 1) {
+          out[g++] = has_base ? pw - base : pw;
+          base = pw;
+          has_base = true;
         }
       }
     }
-  };
+    __syncthreads();  // every thread is done with the tile
+  }
+}
 
-  const bool sync_s = valid && p.sync[s] != 0;
-  CellState<REG, HOSTS> st(p, j, r, s, valid);
+// Sync stages before stage s of a warp's lanes, which is the index of the
+// segment s belongs to: the warp takes the sync bytes 32 at a time.
+// Every lane of the warp must call it.
+__device__ __forceinline__ int segment_of(const unsigned char* sync, int S,
+                                          int s) {
+  const int lane = threadIdx.x & 31;
+  int g = 0;
+  for (int k0 = 0; k0 < S; k0 += 32) {
+    const unsigned bits = __ballot_sync(kFull, k0 + lane < S && sync[k0 + lane] != 0);
+    const int below = s - k0;  // stages of this chunk before s
+    g += __popc(below >= 32 ? bits : below > 0 ? bits & ((1u << below) - 1u) : 0u);
+  }
+  return g;
+}
 
-  // the fold of batch b: each step's excess and what-if contribution are
-  // independent of the others, so they are formed for the whole batch
-  // first; then the sums take them in step order
-  auto fold = [&](int b) {
-    const float* sl = slot(b);
-    const int n0 = b * K;
-    const int kb = batch_len(b);
-    const float* rows = sl + K * (lstride + kCellThreads);
-    const int* lead = reinterpret_cast<const int*>(rows + 2 * K * S);
-    float ew[kMaxBatch], contrib[kMaxBatch];
+// A batch of K steps of one cell of the flat walk: every load of the
+// batch, issued together (the last step again past N - 1).
+template <bool WIF, int K>
+struct FlatBatch {
+  float w[K], bw[K];                    // imputed work, baseline
+  float seg[K], relp[K], am[K], sec[K];  // what-if only
+  int lead[K];
+
+  // the loads that do not need the segment pass; bw0 is the baseline
+  // when it is constant over the steps (bw_st[1] == 0, as with regimes
+  // or hosts), read once
+  __device__ __forceinline__ void load_rows(const CellParams& p, const float* wp,
+                                            long long wst, const float* bwc,
+                                            float bw0, long long row0, int n0) {
 #pragma unroll
-    for (int t = 0; t < kMaxBatch; ++t) {
-      if (t < kb) {
-        const int o = t * S + s;
-        const float dv = sl[t * lstride + lc];
-        const float wm = rows[4 * K * S + o];
-        const float bwv = sl[K * lstride + t * kCellThreads + tid];
-        const float sec = rows[K * S + o];
-        const float wv = sync_s ? wm : dv;
-        ew[t] = fmaxf(0.f, wv - bwv);
-        const float arr = rows[3 * K * S + o] + segp[t * lmax + lc];
-        const float am = rows[o];
-        const float other = (r == lead[o]) ? sec : am;
-        contrib[t] = whatif_contrib(am, other, arr, ew[t]);
+    for (int t = 0; t < K; ++t) {
+      const int n = min(n0 + t, p.N - 1);
+      w[t] = __ldg(wp + n * wst);
+      bw[t] = p.bw_st[1] == 0 ? bw0 : __ldg(bwc + n * p.bw_st[1]);
+      if (WIF) {
+        const long long o = row0 + (long long)n * p.S;
+        relp[t] = __ldg(p.relp + o);
+        am[t] = __ldg(p.amax + o);
+        sec[t] = __ldg(p.sec + o);
+        lead[t] = __ldg(p.lead + o);
       }
     }
-#pragma unroll
-    for (int t = 0; t < kMaxBatch; ++t)
-      if (t < kb) st.add(p, j, n0 + t, s, contrib[t], ew[t]);
-  };
+  }
 
-  // b = -2 and -1 only copy batches 0 and 1; each lambda has one call
-  // site, so all of them inline
-  const int batches = (N + K - 1) / K;
-  for (int b = -2; b < batches; ++b) {
-    if (b >= 0) {
-      cp_async_wait<kSlots - 2>();  // this thread's copies of batch b
-      // Everyone's copies of batch b are visible, and every thread is done
-      // with batch b - 1: its slot takes batch b + 2, its prefix rows b.
-      __syncthreads();
+  // the segment pass's sums: written while this grid runs (programmatic
+  // launch), so read through L2 (ld.global.cg), never the read-only path
+  __device__ __forceinline__ void load_seg(const CellParams& p, const float* gp,
+                                           long long RS, int n0) {
+#pragma unroll
+    for (int t = 0; t < K; ++t) seg[t] = __ldcg(gp + min(n0 + t, p.N - 1) * RS);
+  }
+};
+
+// The flat walk: one thread a cell, lane = the flat (rank, stage) index.
+template <bool WIF, bool REG, bool HOSTS>
+__global__ void __launch_bounds__(kCellThreads)
+    cell_flat_kernel(const CellParams p) {
+  // without the what-if family a step is two loads: larger batches
+  constexpr int K = WIF ? 8 : 12;
+  const int j = blockIdx.y;
+  const int S = p.S;
+  const int N = p.N;
+  const long long RS = (long long)p.R * S;
+  const long long c0 = (long long)blockIdx.x * kCellThreads + threadIdx.x;
+  const bool valid = c0 < RS;
+  const long long c = valid ? c0 : 0;  // in-bounds address when idle
+  const int r = static_cast<int>(c / S);
+  const int s = static_cast<int>(c - (long long)r * S);
+  const bool sync_s = p.sync[s] != 0;
+  // the imputed work: the window, or on a sync stage the [J, N, S] row
+  const float* wp = sync_s ? p.wmin + (long long)j * N * S + s
+                           : p.d + (long long)j * N * RS + c;
+  const long long wst = sync_s ? S : RS;
+  const float* bwc = p.bw + j * p.bw_st[0] + r * p.bw_st[2] + s * p.bw_st[3];
+  const long long row0 = (long long)j * N * S + s;  // step 0 of the rows
+  const float* gp = nullptr;                        // step 0 of the segment sum
+  if (WIF) gp = p.seg + ((long long)j * N * p.R + r) * S + segment_of(p.sync, S, s);
+  CellState<WIF, REG, HOSTS> st(p, j, r, s, valid);
+  const float bw0 = __ldg(bwc);
+
+  FlatBatch<WIF, K> cur, nxt;
+  cur.load_rows(p, wp, wst, bwc, bw0, row0, 0);
+  if (WIF) {
+    // the segment pass ran just before: its sums
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    cur.load_seg(p, gp, RS, 0);
+  }
+  for (int n0 = 0; n0 < N; n0 += K) {
+    // the next batch in flight while this one folds
+    nxt.load_rows(p, wp, wst, bwc, bw0, row0, n0 + K);
+    if (WIF) nxt.load_seg(p, gp, RS, n0 + K);
+    float contrib[K], ew[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      ew[t] = fmaxf(0.f, cur.w[t] - cur.bw[t]);
+      contrib[t] = 0.f;
+      if (WIF) {
+        const float arr = cur.relp[t] + cur.seg[t];
+        const float other = r == cur.lead[t] ? cur.sec[t] : cur.am[t];
+        contrib[t] = whatif_contrib(cur.am[t], other, arr, ew[t]);
+      }
     }
-    if (b + 2 < batches) issue(b + 2);
-    cp_async_commit();
-    if (b < 0) continue;
-    prefix(b);
-    __syncthreads();  // batch b's prefixes are visible
-    if (valid) fold(b);
+    if (valid) {
+#pragma unroll
+      for (int t = 0; t < K; ++t)
+        if (n0 + t < N) st.add(p, j, n0 + t, s, contrib[t], ew[t]);
+    }
+    cur = nxt;
   }
   if (valid) st.write(p, j, r, s);
 }
 
-template <bool REG, bool HOSTS>
-cudaError_t launch_cell_slab(CellParams p, int J, cudaStream_t st) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  p.K = kMaxBatch;
-  while (p.K > 1 && cell_smem_bytes(p.S, p.K) > kBatchBudget) p.K /= 2;
-  const size_t smem = cell_smem_bytes(p.S, p.K);
-  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(cell_slab_kernel<REG, HOSTS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const long long cells = (long long)p.R * p.S;
-  const dim3 grid(static_cast<unsigned>((cells + kCellThreads - 1) / kCellThreads),
-                  static_cast<unsigned>(J));
-  cell_slab_kernel<REG, HOSTS><<<grid, kCellThreads, smem, st>>>(p);
-  return cudaSuccess;
+// Floats of scratch (CellParams::seg) the walk with the what-if family
+// needs for a J x N x R x S window: a segment row per (job, step, rank)
+// past kWarpStages, else none.
+inline long long cell_scratch_floats(int J, int N, int R, int S) {
+  return S > kWarpStages ? (long long)J * N * R * S : 0;
 }
 
-// Launches the cell walk with the regime (REG) and host (HOSTS) families
-// on `st`; the caller reads cudaGetLastError().  Returns an error the
-// launch could not be attempted for (too many stages for the device's
-// shared memory), else cudaSuccess.
-template <bool REG, bool HOSTS>
+// Launches the cell walk with the what-if (WIF), regime (REG) and host
+// (HOSTS) families on `st`; the caller reads cudaGetLastError() too.  With
+// the what-if family past kWarpStages, p.seg holds cell_scratch_floats
+// floats.  Returns the flat walk's launch error, else cudaSuccess.
+template <bool WIF, bool REG, bool HOSTS>
 cudaError_t launch_cell_walk(const CellParams& p, int J, cudaStream_t st) {
-  if (p.S > kWarpStages) return launch_cell_slab<REG, HOSTS>(p, J, st);
-  constexpr int kWarps = kCellThreads / 32;
-  const int warps = (p.R + 32 / p.S - 1) / (32 / p.S);  // per job
-  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps),
-                  static_cast<unsigned>(J));
-  cell_warp_kernel<REG, HOSTS><<<grid, kCellThreads, 0, st>>>(p);
-  return cudaSuccess;
+  if constexpr (WIF) {
+    if (p.S <= kWarpStages) {
+      constexpr int kWarps = kCellThreads / 32;
+      const int warps = (p.R + 32 / p.S - 1) / (32 / p.S);  // per job
+      const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps),
+                      static_cast<unsigned>(J));
+      cell_warp_kernel<REG, HOSTS><<<grid, kCellThreads, 0, st>>>(p);
+      return cudaSuccess;
+    }
+    const long long rows = (long long)J * p.N * p.R;
+    const unsigned blocks = static_cast<unsigned>((rows + kCellThreads - 1) / kCellThreads);
+    cell_segment_kernel<<<blocks, kCellThreads, 0, st>>>(p, rows);
+  }
+  // launched with programmatic stream serialization: the walk's prolog
+  // runs beside the segment pass, and it waits for the pass's sums
+  const long long cells = (long long)p.R * p.S;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((cells + kCellThreads - 1) / kCellThreads),
+                     static_cast<unsigned>(J));
+  cfg.blockDim = dim3(kCellThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute overlap;
+  overlap.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  overlap.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &overlap;
+  cfg.numAttrs = WIF ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, cell_flat_kernel<WIF, REG, HOSTS>, p);
 }
 
 }  // namespace

@@ -37,8 +37,10 @@
 //   cell role      one thread per (job, rank, stage) cell, walking the
 //                  steps in order with its what-if sum, regime statistics
 //                  and host in registers (`cell_walk.cuh`, which the
-//                  what-if kernel of the four-dispatch route runs too):
-//                  the only serial chain left is the one the sums need.
+//                  what-if and regime kernels of the four-dispatch route
+//                  run too): the only serial chain left is the one the
+//                  sums need.  Past 32 stages it is two launches, a
+//                  segment pass into the caller's scratch and the walk.
 //   frontier role  blocks of (job, chunk of kStepChunk steps, 128-rank
 //                  tile), one thread per rank.  No state crosses a step,
 //                  so the step axis spreads over the card.  Per step each
@@ -56,8 +58,8 @@
 // and the cell role's warp walk (S <= 32) releases it at once, so the two
 // share the card: the cell role's step chain leaves most SM slots free at
 // the service's sizes, and the frontier role fills them.  Past 32 stages
-// the slab walk does not release it (the overlap slowed it there), so the
-// frontier role starts when the walk ends.
+// the flat walk does not release it, so the frontier role starts when the
+// walk ends.
 //
 // Every float sum is the step-ordered add chain the plain version takes,
 // with no multiply (nothing contracts to an FMA), and no float atomics
@@ -96,6 +98,7 @@ struct Params {
   const float* thr;    // [J, R, S] activity threshold (regimes / hosts)
   const int* host;     // [J, R] rank -> host index (hosts)
   const unsigned char* sync;  // [S], 1 on sync stages
+  float* seg;          // the cell walk's scratch (cell_scratch_floats)
   // frontier partials [J, T, N, S] (the outputs themselves when T == 1)
   float* pf;
   int* pl;
@@ -355,6 +358,7 @@ CellParams cell_params(const Params& p) {
   c.sync = p.sync;
   c.thr = p.thr;
   c.host = p.host;
+  c.seg = p.seg;
   c.wif = p.wif;
   c.count = p.count;
   c.onset = p.onset;
@@ -378,7 +382,7 @@ extern "C" {
 
 // Pointer slots of `ptrs` (device addresses; 0 where a family is off).
 enum {
-  kD, kWmin, kBd, kBw, kAmax, kSec, kLead, kRelp, kThr, kHost, kSync,
+  kD, kWmin, kBd, kBw, kAmax, kSec, kLead, kRelp, kThr, kHost, kSync, kSeg,
   kPf, kPl, kPs, kPc, kF, kFl, kFs, kFc, kWif,
   kCount, kOnset, kLast, kRuns, kStreak, kSume, kSumpfx, kHostcnt,
   kNumPtrs
@@ -392,6 +396,12 @@ enum {
 
 int fused_tick_num_slots(int which) {
   return which == 0 ? static_cast<int>(kNumPtrs) : static_cast<int>(kNumInts);
+}
+
+// Floats of the scratch buffer (slot kSeg) a J x N x R x S window needs:
+// 0 up to 32 stages.
+long long fused_tick_scratch_floats(int J, int N, int R, int S) {
+  return cell_scratch_floats(J, N, R, S);
 }
 
 // Launches the tick on `stream`: the cell role, the frontier role and,
@@ -411,6 +421,7 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
   p.thr = static_cast<const float*>(ptrs[kThr]);
   p.host = static_cast<const int*>(ptrs[kHost]);
   p.sync = static_cast<const unsigned char*>(ptrs[kSync]);
+  p.seg = static_cast<float*>(ptrs[kSeg]);
   p.pf = static_cast<float*>(ptrs[kPf]);
   p.pl = static_cast<int*>(ptrs[kPl]);
   p.ps = static_cast<float*>(ptrs[kPs]);
@@ -444,12 +455,12 @@ int fused_tick_launch(void* const* ptrs, const long long* ints,
 
   cudaGetLastError();  // clear any stale error from earlier work
   // the cell role first; the frontier role may start beside it (the warp
-  // walk lets it at once, the slab walk when it ends)
+  // walk lets it at once, the flat walk when it ends)
   const CellParams cp = cell_params(p);
-  const cudaError_t err = reg && hosts ? launch_cell_walk<true, true>(cp, p.J, st)
-                          : reg        ? launch_cell_walk<true, false>(cp, p.J, st)
-                          : hosts      ? launch_cell_walk<false, true>(cp, p.J, st)
-                                       : launch_cell_walk<false, false>(cp, p.J, st);
+  const cudaError_t err = reg && hosts ? launch_cell_walk<true, true, true>(cp, p.J, st)
+                          : reg        ? launch_cell_walk<true, true, false>(cp, p.J, st)
+                          : hosts      ? launch_cell_walk<true, false, true>(cp, p.J, st)
+                                       : launch_cell_walk<true, false, false>(cp, p.J, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (p.N + kStepChunk - 1) / kStepChunk;
   cudaLaunchConfig_t cfg = {};

@@ -34,10 +34,10 @@
 // contracts to an FMA), and writing it once, at the end.  Up to 32
 // stages a warp holds whole ranks and takes each rank's stage prefix as
 // a chain of shuffles, once per (rank, step, stage), with no shared
-// memory and no barrier; past 32 a block stages each batch of steps in
-// shared memory and one thread per (step, rank) takes the prefix (see
-// `cell_walk.cuh`).  The sync set arrives as one byte per stage, so a
-// barrier past bit 31 needs no mask.
+// memory and no barrier; past 32 a segment pass writes each (step, rank)
+// row's segment sums to the caller's scratch, and the walk reads them
+// (see `cell_walk.cuh`), at any S.  The sync set arrives as one byte per
+// stage, so a barrier past bit 31 needs no mask.
 //
 // Subnormals: built with -ftz=true, as the reference flushes.
 #include <cuda_runtime.h>
@@ -47,14 +47,21 @@
 
 extern "C" {
 
+// Floats of the scratch buffer `seg` a J x N x R x S window needs: 0 up
+// to 32 stages.
+long long whatif_matrix_scratch_floats(int J, int N, int R, int S) {
+  return cell_scratch_floats(J, N, R, S);
+}
+
 // Launches the kernel on `stream`; `wmin` is read at [J, N, S] offsets
-// even when no stage is a sync stage (pass the window itself then).  Returns cudaGetLastError() after the launch
-// (or the error that kept it from launching): 0 when it was accepted.
+// even when no stage is a sync stage (pass the window itself then);
+// `seg` holds whatif_matrix_scratch_floats floats.  Returns
+// cudaGetLastError() after the launch: 0 when it was accepted.
 int whatif_matrix_launch(const void* d, const void* wmin, const void* bw,
                          const void* amax, const void* sec, const void* lead,
-                         const void* relp, const void* sync, void* wif,
-                         const long long* bw_st, int J, int N, int R, int S,
-                         void* stream) {
+                         const void* relp, const void* sync, void* seg,
+                         void* wif, const long long* bw_st, int J, int N,
+                         int R, int S, void* stream) {
   CellParams p = {};
   p.d = static_cast<const float*>(d);
   p.wmin = static_cast<const float*>(wmin);
@@ -64,6 +71,7 @@ int whatif_matrix_launch(const void* d, const void* wmin, const void* bw,
   p.lead = static_cast<const int*>(lead);
   p.relp = static_cast<const float*>(relp);
   p.sync = static_cast<const unsigned char*>(sync);
+  p.seg = static_cast<float*>(seg);
   p.wif = static_cast<float*>(wif);
   for (int k = 0; k < 4; ++k) p.bw_st[k] = bw_st[k];
   p.N = N;
@@ -72,7 +80,7 @@ int whatif_matrix_launch(const void* d, const void* wmin, const void* bw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   cudaGetLastError();  // clear any stale error from earlier work
-  const cudaError_t err = launch_cell_walk<false, false>(p, J, st);
+  const cudaError_t err = launch_cell_walk<true, false, false>(p, J, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,9 @@ composes too.  It never falls back from one to the other.
 Together they are the four-dispatch reference route
 (`fused.four_dispatch_tick`): separate launches, each re-reading the
 window, held bit for bit against the fused tick kernel, which computes
-all the families in one call.  The what-if kernel is the fused kernel's
-cell role with the what-if family alone (`csrc/cell_walk.cuh`).
+all the families in one call.  The what-if and regime kernels are the
+fused kernel's cell role (`csrc/cell_walk.cuh`) with the what-if family
+alone and with the regime family alone.
 """
 from __future__ import annotations
 
@@ -164,10 +165,12 @@ def frontier_window_kernel(x: TickInputs):
 def _bind_whatif(lib: ctypes.CDLL) -> None:
     """Declare the C interface of `csrc/whatif_matrix.cu`."""
     lib.whatif_matrix_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.whatif_matrix_launch.restype = ctypes.c_int
+    lib.whatif_matrix_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.whatif_matrix_scratch_floats.restype = ctypes.c_longlong
     lib.whatif_matrix_error_string.argtypes = [ctypes.c_int]
     lib.whatif_matrix_error_string.restype = ctypes.c_char_p
 
@@ -188,11 +191,15 @@ def _whatif_cuda(x: TickInputs) -> torch.Tensor:
         wmin = x.wmin
     lib = _lib.load_library("whatif_matrix.cu", _bind_whatif)
     wif = torch.empty((jn, s, r), dtype=f32, device=dev)
+    # the cell walk's segment sums past 32 stages (the library's count)
+    scratch = lib.whatif_matrix_scratch_floats(jn, n, r, s)
+    seg = torch.empty((scratch,), dtype=f32, device=dev) if scratch else None
     with torch.cuda.device(dev):
         rc = lib.whatif_matrix_launch(
             x.d.data_ptr(), wmin.data_ptr(), x.bw.data_ptr(),
             x.amax.data_ptr(), x.second.data_ptr(), x.leader.data_ptr(),
-            x.relprev.data_ptr(), x.sync.data_ptr(), wif.data_ptr(),
+            x.relprev.data_ptr(), x.sync.data_ptr(),
+            0 if seg is None else seg.data_ptr(), wif.data_ptr(),
             _strides(x.bw), jn, n, r, s, _stream(dev),
         )
     _raise_on(rc, lib, "whatif_matrix")

@@ -129,6 +129,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_tick_launch.restype = ctypes.c_int
     lib.fused_tick_num_slots.argtypes = [ctypes.c_int]
     lib.fused_tick_num_slots.restype = ctypes.c_int
+    lib.fused_tick_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_tick_scratch_floats.restype = ctypes.c_longlong
     lib.fused_tick_error_string.argtypes = [ctypes.c_int]
     lib.fused_tick_error_string.restype = ctypes.c_char_p
 
@@ -182,6 +184,9 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     hostcnt = None
     if with_hosts:
         hostcnt = torch.zeros((jn, n, s, x.num_hosts), dtype=i32, device=dev)
+    # the cell walk's segment sums past 32 stages (the library's count)
+    scratch = lib.fused_tick_scratch_floats(jn, n, r, s)
+    seg = empty((scratch,)) if scratch else None
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -190,7 +195,7 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     ptrs = [
         ptr(d), ptr(x.wmin if x.sync_stages else d), ptr(x.bd), ptr(x.bw),
         ptr(x.amax), ptr(x.second), ptr(x.leader), ptr(x.relprev),
-        ptr(x.thr), ptr(x.host), ptr(x.sync),
+        ptr(x.thr), ptr(x.host), ptr(x.sync), ptr(seg),
         *(ptr(t) for t in parts), ptr(f), ptr(fl), ptr(fs), ptr(fc),
         ptr(wif), *(ptr(t) for t in reg), ptr(hostcnt),
     ]

@@ -16,6 +16,8 @@ regime route parts from its fused route (one `sum_excess` cell, by
 FLT_MIN); the port follows the fused route, as `TestFltMinDivergence`
 shows.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -388,6 +390,81 @@ class TestAgainstReference:
             port.fused_tick_ref(d, device="cpu", **kw),
             jref.fused_tick_ref(d, **kw), f"{shape}",
         )
+
+
+# ---------------------------------------------------------------------------
+# a schema past the CUDA cell walk's former stage limit; the regime fold's
+# "last active step" at its edges
+# ---------------------------------------------------------------------------
+
+#: 2,500 stages, past the ~2,400 the CUDA cell walk once staged in shared
+#: memory; barriers at 17, past bit 31 (300) and on the last stage
+_WIDE_SHAPE, _WIDE_SYNC = (1, 3, 2, 2500), (17, 300, 2499)
+
+
+@functools.lru_cache(maxsize=1)
+def _wide_case():
+    """The window, the call's arguments and the reference's composed
+    oracle (`fused_tick_ref`, its per-job jnp references: the Pallas
+    kernels in interpret mode take minutes at this width)."""
+    d = _window(_WIDE_SHAPE, seed=2500)
+    kw = dict(sync_stages=_WIDE_SYNC, host_index=np.array([[0, 1]]), num_hosts=2)
+    return d, kw, jref.fused_tick_ref(d, **kw)
+
+
+class TestWideSchema:
+    @pytest.mark.parametrize("route", ["fused_fleet_tick", "four_dispatch_tick"])
+    def test_plain_route_against_reference(self, route):
+        """Every field bit for bit, but the epilog's what-if `exposed`, a
+        sum the port takes in another order than XLA's (the module's
+        tolerance)."""
+        d, kw, want = _wide_case()
+        got = getattr(port, route)(d, device="cpu", **kw)
+        for fam in _FAMILIES:
+            pg, pw = getattr(got, fam), getattr(want, fam)
+            for name, g, w in zip(pw._fields, pg, pw):
+                ctx = f"{route}: {fam}.{name}"
+                if (fam, name) == ("whatif", "exposed"):
+                    _assert_close(g, w, ctx)
+                else:
+                    np.testing.assert_array_equal(_bits(g), _bits(w), err_msg=ctx)
+
+
+def _activity_window():
+    """One job, 5 steps, 4 ranks, 3 stages, 1.0 everywhere but three
+    cells 5.0 slower: (stage 0, rank 1) at every step, (stage 1, rank 2)
+    at step 0 only, (stage 2, rank 3) at steps 1 and 3.  Every other
+    cell's series is empty."""
+    d = np.ones((1, 5, 4, 3), np.float32)
+    d[0, :, 1, 0] += 5.0
+    d[0, 0, 2, 1] += 5.0
+    d[0, [1, 3], 3, 2] += 5.0
+    return d
+
+
+class TestRegimeLastStep:
+    """The cell walk keeps last = max(last, n) where the reference
+    assigns n: the same, since n grows.  Shown on series active at every
+    step, at the first step only, at two steps, and empty ones (last -1,
+    onset -1 after the epilog), through both routes and the reference."""
+
+    @pytest.mark.parametrize("route", ["fleet_regime_stats", "four_dispatch_tick",
+                                       "fused_fleet_tick"])
+    def test_last_and_onset(self, route):
+        d = _activity_window()
+        got = getattr(port, route)(d, device="cpu")
+        got = got if route == "fleet_regime_stats" else got.regimes
+        want = jref.fleet_regime_stats(d)
+        _assert_fields_close(got, want, route)
+        last, onset = got.last[0].numpy(), got.onset[0].numpy()   # [S, R]
+        expect_last = np.full((3, 4), -1)
+        expect_last[0, 1], expect_last[1, 2], expect_last[2, 3] = 4, 0, 3
+        np.testing.assert_array_equal(last, expect_last)
+        expect_onset = np.full((3, 4), -1)
+        expect_onset[0, 1], expect_onset[1, 2], expect_onset[2, 3] = 0, 0, 1
+        np.testing.assert_array_equal(onset, expect_onset)
+        assert got.count[0, 0, 1] == 5 and got.runs[0, 2, 3] == 2
+        assert got.streak[0, 0, 1] == 5 and got.streak[0, 2, 3] == 0
 
 
 def _flt_min_window():

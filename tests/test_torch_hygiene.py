@@ -176,6 +176,47 @@ def test_fused_and_whatif_kernels_share_the_cell_walk():
         assert "cell_warp_kernel" not in text and "cell_slab_kernel" not in text, name
 
 
+def test_regime_kernel_runs_the_cell_walk():
+    """The regime kernel takes its statistics from the cell walk's one
+    fold (`CellState`) with the what-if family off, so both routes share
+    it: no kernel and no step loop of its own."""
+    text = _lib.kernel_source("regime_stats.cu").read_text()
+    assert '#include "cell_walk.cuh"' in text
+    assert "launch_cell_walk<false, true, false>" in text
+    assert "__global__" not in text and "for (int n" not in text
+
+
+def test_cell_walk_and_coactivation_refuse_no_size():
+    """No launch path refuses a stage or job count: neither source
+    returns cudaErrorInvalidValue, the error of the former shared-memory
+    limits (about 2,400 stages, about 14,500 jobs a call)."""
+    for name in ("cell_walk.cuh", "coactivation.cu"):
+        assert "cudaErrorInvalidValue" not in _lib.kernel_source(name).read_text(), name
+
+
+def test_cell_walk_wrappers_take_scratch_from_the_library():
+    """Past 32 stages the what-if walk writes segment sums to a scratch
+    buffer the wrapper allocates: both wrappers ask the library for its
+    size and pass it (the what-if launch's ninth pointer)."""
+    pointer, integer = ctypes.c_void_p, ctypes.c_int
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace() for name in (
+            "whatif_matrix_launch", "whatif_matrix_scratch_floats",
+            "whatif_matrix_error_string", "fused_tick_launch",
+            "fused_tick_num_slots", "fused_tick_scratch_floats",
+            "fused_tick_error_string",
+        )
+    })
+    kernels._bind_whatif(lib)
+    fused._bind(lib)
+    assert lib.whatif_matrix_launch.argtypes[:10] == [pointer] * 10
+    for name in ("whatif_matrix_scratch_floats", "fused_tick_scratch_floats"):
+        assert getattr(lib, name).argtypes == [integer] * 4
+        assert getattr(lib, name).restype is ctypes.c_longlong
+    for name in ("fused_tick.cu", "whatif_matrix.cu"):
+        assert "cell_scratch_floats(J, N, R, S)" in _lib.kernel_source(name).read_text()
+
+
 def test_frontier_kernel_takes_its_prefix_from_the_shared_header():
     """The four-dispatch frontier kernel must add its stage prefixes in the
     fused route's order, so it takes them from `frontier_common.cuh`

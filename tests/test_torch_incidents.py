@@ -96,6 +96,15 @@ class TestCoActivation:
         assert got.coact[0, 0] == 1
         assert got.active[0, 0] == 4
 
+    def test_many_jobs_equal_the_oracle(self):
+        """32,768 jobs in one call, past the ~14,500 whose job arrays the
+        CUDA kernel once needed in shared memory at once: the plain
+        version equals the reference's NumPy oracle exactly."""
+        act = _act((32768, 3, 2, 2), 16, p=0.05)
+        got = tin.co_activation(act, device="cpu")
+        _assert_packets_equal(got, jfr.co_activation_ref(act), "32768 jobs")
+        assert int(got.jobs.max()) > 1000
+
     def test_rejects_bad_rank(self):
         with pytest.raises(ValueError):
             tin.co_activation(np.zeros((2, 3, 4)), device="cpu")
