@@ -55,6 +55,21 @@ package — in these phases, and exits non-zero if any fails:
            on the shared uplink; the same run with `--tick-path fused`
            gives the same report outside its wall-clock fields; prints
            both runs' phase split;
+  shard    the sharded service on the card, one CUDA stream per shard:
+           first the tick's per-job results against J (the fused and the
+           four-dispatch tick of 32 jobs against the same jobs stacked 1,
+           2, 4, 8 and 16 at a time, bit for bit: a shard stacks fewer
+           jobs than the whole fleet); then `serve_fleet --topology fabric` at the
+           fabric phase's size with `--shards 3 --shard-workers thread`
+           and `--shards 8 --shard-workers inline`, each equal to the
+           phase's own unsharded card run exactly and to a `--device cpu
+           --shards 3` run, the one switch-tier incident formed once, the
+           fused launches equal to the (shard, group) refreshes and the
+           co-activation launches to the unsharded run's; and the replay
+           with `--shards 3` on both tick paths, each report equal to the
+           unsharded fused report outside its wall-clock fields.  Prints
+           each run's wall time, phase split and the coordinator's tick
+           frontier;
   coact    runs the co-activation kernel against its plain torch version
            on the card, exactly, on the fabric run's and the four-dispatch
            replay's own group tensors (each distinct shape), edge shapes
@@ -69,7 +84,10 @@ package — in these phases, and exits non-zero if any fails:
            the fused kernel and the tick and four-dispatch replay runs
            handed each single-family kernel, recorded at each (shape, sync
            set, families): there each kernel is held against its plain
-           version bit for bit and timed; the `kernels` line takes the
+           version bit for bit and timed; so are the inputs the shard
+           phase's sharded runs (the shards' own groups, padded to a power
+           of two of jobs each) and its J case (every stack, the whole 32
+           included) handed them; the `kernels` line takes the
            frontier and what-if times from the replay's largest group, the
            regime times from the tick's;
   profile  the service and fabric runs once more under torch.profiler:
@@ -159,6 +177,12 @@ REPLAY_ARGS = ["--synth", "--jobs", "64", "--ranks", "128", "--window", "100",
 REPLAY_VOLATILE = ("elapsed_s", "windows_per_s", "obs", "tick_path")
 #: the shared uplink of `serve_fleet --topology fabric`
 FABRIC_SWITCH = "fab-sw0"
+#: the shard phase's sharded fabric runs: (shards, worker lanes)
+SHARD_RUNS = ((3, "thread"), (8, "inline"))
+#: the stack of jobs whose tick the shard phase holds against sub-stacks
+J_INVARIANCE_SHAPE = (32, 100, 128, 6)
+#: the sub-stacks: every power of two a shard's group pads to below 32
+J_INVARIANCE_STACKS = (1, 2, 4, 8, 16)
 #: with --keep-going: the kernel measurements that failed, and the
 #: errors that count as a failed measurement rather than a crash
 FAILURES = []
@@ -978,6 +1002,161 @@ def replay_phase(fused, kernels, coact, replay, fused_groups, coact_groups):
     return launches, groups
 
 
+def j_invariance_case(torch, np, fused, kernels, fused_groups, family_groups):
+    """The tick's per-job results do not depend on how many jobs share
+    its launch: the fused and the four-dispatch tick of 32 jobs against
+    the same jobs stacked 1, 2, 4, 8 and 16 at a time (the group sizes
+    a shard pads to), every family bit for bit.  A shard's group stacks
+    fewer jobs than the whole fleet's.  The kernels' inputs at every
+    stack, the whole one included, go into `fused_groups` and
+    `family_groups`, for the group phases to hold against the plain
+    versions."""
+    rng = np.random.default_rng(17)
+    d = rng.exponential(0.03, J_INVARIANCE_SHAPE).astype(np.float32)
+    d[::3, :, 7, 1] += 0.15
+    jn = d.shape[0]
+    calls = 0
+    for route in (fused.fused_fleet_tick, fused.four_dispatch_tick):
+        for regimes in (False, True):
+            kw = dict(sync_stages=DDP, with_regimes=regimes)
+            with recording_fused(fused, fused_groups), \
+                    recording_families(kernels, family_groups):
+                whole = route(torch.from_numpy(d).cuda(), **kw)
+            for j in J_INVARIANCE_STACKS:
+                for lo in range(0, jn, j):
+                    with recording_fused(fused, fused_groups), \
+                            recording_families(kernels, family_groups):
+                        part = route(torch.from_numpy(d[lo:lo + j]).cuda(), **kw)
+                    calls += 1
+                    for fam in ("frontier", "whatif", "regimes"):
+                        a, b = getattr(part, fam), getattr(whole, fam)
+                        if a is None:
+                            continue
+                        assert_bitwise(
+                            tuple(a), tuple(t[lo:lo + j] for t in b), torch,
+                            f"{route.__name__} J={j} jobs {lo}.. {fam}",
+                        )
+    torch.cuda.synchronize()
+    return dict(calls=calls, whole=list(d.shape),
+                stacked=list(J_INVARIANCE_STACKS))
+
+
+def counter(out, name) -> int:
+    """A counter of a run's merged self-observability metrics."""
+    return out["obs"]["metrics"]["counters"].get(name, 0)
+
+
+def run_summary(out, wall) -> dict:
+    """A run's wall seconds, phase split and the coordinator's tick
+    frontier (its slowest shard and phase)."""
+    tf = (out.get("obs") or {}).get("tick_frontier") or {}
+    return dict(wall_s=wall, phase_seconds=phase_split(out),
+                slowest=tf.get("slowest"), frontier_shards=tf.get("shards"),
+                exposed_s=tf.get("exposed_s"))
+
+
+def shard_phase(torch, np, fused, kernels, coact, serve_fleet, replay,
+                fused_groups, family_groups):
+    """The sharded service on the card: the tick's per-job results
+    against J, the sharded fabric runs against the unsharded card run
+    (exactly) and a cpu run, and the sharded replay on both tick paths
+    against the unsharded fused replay.  Every launch count is reset
+    just before each run and read just after it.  The inputs the
+    sharded runs and the J case hand the fused kernel go into
+    `fused_groups`, those they hand the single-family kernels into
+    `family_groups`: the group phases hold each against its plain
+    version."""
+    print("shard j-invariance " + json.dumps(j_invariance_case(
+        torch, np, fused, kernels, fused_groups, family_groups)), flush=True)
+
+    served = {}
+    for label, extra in [("unsharded", []), *(
+        (f"{n} {w}", ["--shards", str(n), "--shard-workers", w])
+        for n, w in SHARD_RUNS
+    )]:
+        reset_launches(fused, kernels, coact)
+        with recording_fused(fused, fused_groups if extra else {}):
+            out, wall = serve(serve_fleet, FABRIC_ARGS + extra + ["--device", "cuda"])
+        launches = read_launches(fused, kernels, coact)
+        served[label] = (out, wall, launches)
+        groups = counter(out, "groups_refreshed")
+        if launches["fused_tick"] != groups or groups <= 0 or any(
+            launches[k] for k in FOUR_DISPATCH
+        ):
+            raise AssertionError(
+                f"fabric {label}: launched {launches} for {groups} group refreshes"
+            )
+        fleet = [r for r in out["incidents"] if r["scope"] == "fleet"]
+        if [(r["tier"], r["host"]) for r in fleet] != [("switch", FABRIC_SWITCH)]:
+            raise AssertionError(f"fabric {label}: fleet incidents {fleet}")
+        print(f"shard fabric {label} " + json.dumps(dict(
+            shards=out["shards"], launches=launches, group_refreshes=groups,
+            **run_summary(out, wall),
+        )), flush=True)
+    one, _, one_launches = served.pop("unsharded")
+    cpu, cpu_wall = serve(serve_fleet, FABRIC_ARGS + ["--shards", "3", "--device", "cpu"])
+    for label, (out, _, launches) in served.items():
+        for key in ("routing", "snapshot", "incidents", "escalations"):
+            if out[key] != one[key]:
+                raise AssertionError(f"fabric {label}: {key} differs from unsharded")
+        check_routes(out, cpu)
+        check_incidents(out, cpu)
+        if launches["coactivation"] != one_launches["coactivation"]:
+            raise AssertionError(
+                f"fabric {label}: {launches['coactivation']} co-activation "
+                f"launches, unsharded {one_launches['coactivation']}"
+            )
+    print("shard fabric cpu " + json.dumps(dict(cpu_wall_s=cpu_wall)), flush=True)
+
+    reports = {}
+    for label, extra in (("unsharded fused", ["--tick-path", "fused"]),
+                         ("3 fused", ["--tick-path", "fused", "--shards", "3"]),
+                         ("3 four-dispatch", ["--tick-path", "four-dispatch",
+                                              "--shards", "3"])):
+        argv = REPLAY_ARGS + extra + ["--device", "cuda"]
+        sharded = "--shards" in extra
+        reset_launches(fused, kernels, coact)
+        t0 = time.perf_counter()
+        with recording_fused(fused, fused_groups if sharded else {}), \
+                recording_families(kernels, family_groups if sharded else {}):
+            out = replay.run(replay.make_argparser().parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = read_launches(fused, kernels, coact)
+        reports[label] = (out, launches)
+        groups = counter(out, "groups_refreshed")
+        route = ("fused_tick",) if "fused" in label else (
+            "frontier_window", "whatif_matrix")
+        other = set(FOUR_DISPATCH + ("fused_tick",)) - set(route)
+        if groups <= 0 or any(launches[k] != groups for k in route) or any(
+            launches[k] for k in other
+        ):
+            raise AssertionError(
+                f"replay {label}: launched {launches} for {groups} group refreshes"
+            )
+        print(f"shard replay {label} " + json.dumps(dict(
+            shards=out["shards"], launches=launches, group_refreshes=groups,
+            **run_summary(out, wall),
+        )), flush=True)
+    one, one_launches = reports.pop("unsharded fused")
+    want = {k: v for k, v in replay_report(one).items() if k != "shards"}
+    for label, (out, launches) in reports.items():
+        got = {k: v for k, v in replay_report(out).items() if k != "shards"}
+        if got != want:
+            diff = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"replay {label}: report differs in {diff}")
+        if launches["coactivation"] != one_launches["coactivation"]:
+            raise AssertionError(f"replay {label}: co-activation launched {launches}")
+    # the shards' inputs were made on their own streams: done before the
+    # group phases read them on this one
+    torch.cuda.synchronize()
+    print("shard groups " + json.dumps(dict(
+        fused_tick=[[list(shape), list(sync)] for shape, sync, *_ in
+                    fused_groups.get("fused_tick", {})],
+        **{name: [[list(shape), list(sync)] for shape, sync, *_ in by_key]
+           for name, by_key in family_groups.items()},
+    )), flush=True)
+
+
 def profile_phase(torch, serve_fleet, label, argv) -> None:
     """A service run once more under torch.profiler: device busy time by
     kernel, against the service's own tick time (obs)."""
@@ -1089,11 +1268,20 @@ def main() -> int:
     replay_launches, replay_groups = replay_phase(
         fused, kernels, coact, replay, fused_groups, replay_coact
     )
+    shard_fused, shard_families = {}, {}
+    shard_phase(torch, np, fused, kernels, coact, serve_fleet, replay,
+                shard_fused, shard_families)
     coact_rows = coact_phase(torch, np, coact, groups, replay_coact, flush)
     # each kernel at the inputs its main path handed it
     fused_rows = fused_group_phase(torch, fused, "main-path", fused_groups, flush)
     tick_rows = group_phase(torch, kernels, "tick", tick_groups, flush)
     replay_rows = group_phase(torch, kernels, "replay", replay_groups, flush)
+    # ... and at every group the sharded runs and the J case handed it
+    shard_fused_rows = fused_group_phase(torch, fused, "shard", shard_fused, flush)
+    shard_rows = group_phase(torch, kernels, "shard", shard_families, flush)
+    for name in ("fused_tick", *FOUR_DISPATCH):
+        if not (shard_fused_rows if name == "fused_tick" else shard_rows.get(name)):
+            raise AssertionError(f"the shard phase handed {name} no group")
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
     if FAILURES:
@@ -1103,17 +1291,19 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         # the service's own DDP group shape; the fabric run's first group
-        kernel_row("fused_tick", launches, rows + fused_rows, rows[0]),
+        kernel_row("fused_tick", launches, rows + fused_rows + shard_fused_rows,
+                   rows[0]),
         kernel_row("coactivation", coact_launches, coact_rows, coact_rows[0]),
         # the frontier and what-if kernels: the four-dispatch replay's
         # launches, times at its largest group; the regime kernel: the
         # public four-dispatch tick's (the service never asks for regimes)
         *(kernel_row(name, replay_launches[name],
-                     replay_rows[name] + case_rows[name],
+                     replay_rows[name] + case_rows[name] + shard_rows[name],
                      largest(replay_rows[name]))
           for name in ("frontier_window", "whatif_matrix")),
         kernel_row("regime_stats", tick_launches["regime_stats"],
-                   tick_rows["regime_stats"] + case_rows["regime_stats"],
+                   tick_rows["regime_stats"] + case_rows["regime_stats"]
+                   + shard_rows["regime_stats"],
                    largest(tick_rows["regime_stats"])),
     ]}), flush=True)
     smi = subprocess.run(

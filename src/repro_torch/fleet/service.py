@@ -182,8 +182,8 @@ class FleetService:
 
     def _declare_hosts(self, job_id: str, pkt: EvidencePacket) -> None:
         """Land a packet's declared placement in the fleet topology —
-        the attached engine's, or the coordinator sink when this service
-        is one shard of a sharded fleet.  SFP2-v3 packets also carry the
+        the attached engine's, or the coordinator engine's when this
+        service is one shard of a sharded fleet.  SFP2-v3 packets also carry the
         fabric tiers (per-rank switch/pod ids); v2's host-only placement
         declares just the host tier, never erasing a prior fabric claim."""
         if not pkt.hosts:
@@ -308,7 +308,7 @@ class FleetService:
             if (self.fused if fused is None else bool(fused))
             else four_dispatch_tick
         )
-        refreshed = 0
+        refreshed = groups = 0
         for (shape, sync_idx), jobs in sorted(
             self.registry.dirty_groups().items()
         ):
@@ -321,6 +321,7 @@ class FleetService:
             # jobs, so the first-J outputs are unchanged; the padded rows
             # are sliced away below.
             j_live = len(jobs)
+            groups += 1
             with self._phase("tick.stage"):
                 staged = self._stager.stage([j.last_window for j in jobs])
                 # a copy on CUDA (pageable source: the copy is complete
@@ -333,8 +334,10 @@ class FleetService:
                 )
                 if self.device.type == "cuda":
                     # the launches are asynchronous: wait here, or the
-                    # kernels' time is charged to tick.epilog
-                    torch.cuda.synchronize(self.device)
+                    # kernels' time is charged to tick.epilog.  Only for
+                    # this thread's stream: a sharded service's other
+                    # shards launch on streams of their own
+                    torch.cuda.current_stream(self.device).synchronize()
             with self._phase("tick.epilog"):
                 pkt, wif = tick.frontier, tick.whatif
                 shares = pkt.shares[:j_live].cpu().numpy()     # [J, S]
@@ -356,6 +359,8 @@ class FleetService:
                     refreshed += 1
         if self.obs is not None and refreshed:
             self.obs.metrics.counter("jobs_refreshed").inc(refreshed)
+            # one tick-route call (one fused launch) per group
+            self.obs.metrics.counter("groups_refreshed").inc(groups)
         return refreshed
 
     # -- routing -----------------------------------------------------------

@@ -36,9 +36,14 @@ the host tier rather than guessing).
 
 A job with no declared placement cannot be correlated at any tier — its
 incidents stay job-scoped.
+
+Writes are serialized by a lock: a sharded fleet's lanes declare into the
+coordinator's one `Topology` from several threads at once, and `rehomed`
+is a read-modify-write.
 """
 from __future__ import annotations
 
+import threading
 from typing import Mapping, Sequence
 
 __all__ = ["TIERS", "Topology"]
@@ -62,6 +67,8 @@ class Topology:
         #: or a switch to a different pod.  Monotonic; surfaced in
         #: `FleetService.snapshot()["rehomed"]`.
         self.rehomed = 0
+        #: held by every write (`declare` takes it around `declare_fabric`)
+        self._lock = threading.RLock()
 
     @classmethod
     def from_jobs(
@@ -116,19 +123,20 @@ class Topology:
             raise ValueError(
                 f"pods must align with hosts: {len(pods)} != {len(hosts)}"
             )
-        prev = self._jobs.get(job_id, ())
-        self.rehomed += sum(
-            1
-            for r in range(min(len(prev), len(hosts)))
-            if prev[r] != hosts[r]
-        )
-        self._jobs[job_id] = hosts
-        for r, h in enumerate(hosts):
-            self.declare_fabric(
-                h,
-                switch=switches[r] if switches else "",
-                pod=pods[r] if pods else "",
+        with self._lock:
+            prev = self._jobs.get(job_id, ())
+            self.rehomed += sum(
+                1
+                for r in range(min(len(prev), len(hosts)))
+                if prev[r] != hosts[r]
             )
+            self._jobs[job_id] = hosts
+            for r, h in enumerate(hosts):
+                self.declare_fabric(
+                    h,
+                    switch=switches[r] if switches else "",
+                    pod=pods[r] if pods else "",
+                )
 
     def declare_fabric(
         self, host: str, *, switch: str = "", pod: str = ""
@@ -140,7 +148,13 @@ class Topology:
         claims are last-writer-wins and counted into `rehomed`.
         """
         switch, pod = str(switch), str(pod)
-        if switch:
+        if not switch:
+            if pod:
+                raise ValueError(
+                    f"pod {pod!r} declared for host {host!r} without a switch"
+                )
+            return
+        with self._lock:
             prev = self._switch_of.get(host, "")
             if prev and prev != switch:
                 self.rehomed += 1
@@ -150,17 +164,14 @@ class Topology:
                 if prev and prev != pod:
                     self.rehomed += 1
                 self._pod_of[switch] = pod
-        elif pod:
-            raise ValueError(
-                f"pod {pod!r} declared for host {host!r} without a switch"
-            )
 
     def forget(self, job_id: str) -> None:
         """Drop a job's placement (eviction path — bounded state).
 
         Fabric maps persist: the cabling outlives any one job, and the
         engine only reaches fabric nodes through live jobs' hosts."""
-        self._jobs.pop(job_id, None)
+        with self._lock:
+            self._jobs.pop(job_id, None)
 
     # -- reads (host tier, the PR-8 surface) -------------------------------
 

@@ -5,7 +5,9 @@ into a shared library with a plain C interface, keyed by a hash of the
 source, the shared headers and the flags, under
 ``build/repro_torch_kernels/`` at the root of the checkout, and loaded
 with `ctypes`.  Nothing is compiled or loaded when this module is
-imported.
+imported.  Loading is safe from several threads at once (the sharded
+fleet service's lanes): one build and one bind per library and process.
+The wrappers count their launches through `count_launch`, under a lock.
 """
 from __future__ import annotations
 
@@ -15,11 +17,13 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 __all__ = [
     "build",
     "build_dir",
     "check_tensor",
+    "count_launch",
     "kernel_source",
     "load_library",
     "nvcc_path",
@@ -35,6 +39,10 @@ _NVCC_FLAGS = (
 _BUILD_TIMEOUT_S = 600
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: held across the check, build, load, bind and insert of `load_library`
+_load_lock = threading.Lock()
+#: held around each launch count's increment (`count_launch`)
+_count_lock = threading.Lock()
 
 
 def kernel_source(name: str) -> pathlib.Path:
@@ -90,7 +98,10 @@ def build(name: str) -> pathlib.Path:
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    # one temporary name per build: threads of one process share a pid
+    tmp = lib.with_name(
+        f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
+    )
     cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S
@@ -106,14 +117,24 @@ def build(name: str) -> pathlib.Path:
     return lib
 
 
+def count_launch(counts: dict, key: str) -> None:
+    """Add one to ``counts[key]`` (a wrapper module's `launches` entry,
+    or its globals' ``"launches"``) under a lock: the sharded service's
+    lanes launch from several threads at once."""
+    with _count_lock:
+        counts[key] += 1
+
+
 def load_library(name: str, bind) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>`, then `bind(lib)` to
-    declare its C interface; both once per process."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        bind(lib)
-        _loaded[name] = lib
+    declare its C interface; both once per process, however many threads
+    ask at once."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            bind(lib)
+            _loaded[name] = lib
     return lib
 
 

@@ -134,7 +134,7 @@ def _frontier_cuda(x: TickInputs):
             _stream(dev),
         )
     _raise_on(rc, lib, "frontier_window")
-    launches["frontier_window"] += 1
+    _lib.count_launch(launches, "frontier_window")
     return tuple(out)
 
 
@@ -203,7 +203,7 @@ def _whatif_cuda(x: TickInputs) -> torch.Tensor:
             _strides(x.bw), jn, n, r, s, _stream(dev),
         )
     _raise_on(rc, lib, "whatif_matrix")
-    launches["whatif_matrix"] += 1
+    _lib.count_launch(launches, "whatif_matrix")
     return wif
 
 
@@ -275,7 +275,7 @@ def _regime_cuda(x: TickInputs) -> tuple[torch.Tensor, ...]:
             _strides(x.bw), jn, n, r, s, _stream(dev),
         )
     _raise_on(rc, lib, "regime_stats")
-    launches["regime_stats"] += 1
+    _lib.count_launch(launches, "regime_stats")
     return out
 
 

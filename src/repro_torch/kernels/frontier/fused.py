@@ -137,7 +137,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     """Launch `csrc/fused_tick.cu` on tensors on one CUDA device."""
-    global launches
     d = x.d
     dev = d.device
     if dev.type != "cuda":
@@ -213,7 +212,7 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     if rc != 0:
         msg = lib.fused_tick_error_string(rc).decode()
         raise RuntimeError(f"fused tick kernel launch failed: {msg} ({rc})")
-    launches += 1
+    _lib.count_launch(globals(), "launches")
     return TickAccumulators(f, fl, fs, fc, wif, regimes, hostcnt)
 
 

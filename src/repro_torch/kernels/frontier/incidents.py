@@ -145,7 +145,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _co_activation_cuda(act: torch.Tensor) -> CoActivationPacket:
     """Launch `csrc/coactivation.cu` on ``act[J, N, H, S]`` (uint8 0/1,
     contiguous, on one CUDA device)."""
-    global launches
     dev = act.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA co-activation kernel needs CUDA tensors, got {dev}")
@@ -171,7 +170,7 @@ def _co_activation_cuda(act: torch.Tensor) -> CoActivationPacket:
     if rc != 0:
         msg = lib.coact_error_string(rc).decode()
         raise RuntimeError(f"co-activation kernel launch failed: {msg} ({rc})")
-    launches += 1
+    _lib.count_launch(globals(), "launches")
     return CoActivationPacket(jobs, coact, active)
 
 

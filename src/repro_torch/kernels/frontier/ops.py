@@ -63,6 +63,7 @@ __all__ = [
     "segment_arrivals",
     "stage_prefix",
     "step_makespan",
+    "step_sum",
     "tick_inputs",
     "whatif_matrix",
     "whatif_matrix_loop",
@@ -393,17 +394,42 @@ def tick_inputs(
 # ---------------------------------------------------------------------------
 
 
+def step_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of [J, N, ...] over the steps (dim 1) by pairwise halving,
+    each add flushed: elementwise adds only, in an order fixed by N.
+
+    A reduction kernel picks its add order from the whole tensor's shape:
+    on the card `sum(dim=1)` gave a job other last bits when fewer jobs
+    were stacked beside it, so a job's shares depended on the jobs that
+    shared its launch (a shard's group against the whole fleet's).  Here
+    a job's sum never depends on J, and it is the same on every device.
+    """
+    n = x.shape[1]
+    width = 1 << (n - 1).bit_length()
+    if width > n:
+        pad = x.new_zeros((x.shape[0], width - n) + tuple(x.shape[2:]))
+        x = torch.cat([x, pad], dim=1)
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = ftz(x[:, :half] + x[:, half:])
+    return x[:, 0]
+
+
 def frontier_packet(f, lead, sec, clip) -> FleetPacket:
     """[J, N, S] frontier accumulators -> `FleetPacket`."""
     advances = ftz(torch.diff(f, dim=2, prepend=torch.zeros_like(f[:, :, :1])))
     gap = ftz(f - sec)                           # sec = -inf when R == 1
     exposed = f[:, :, -1]                        # [J, N]
-    denom = torch.clamp_min(ftz(exposed.sum(dim=1)), 1e-30)
-    shares = ftz(ftz(advances.sum(dim=1)) / denom[:, None])
-    gains = ftz(
-        torch.clamp_min(ftz(ftz(exposed[:, :, None] - clip).sum(dim=1)), 0.0)
-        / denom[:, None]
-    )
+    s = f.shape[2]
+    # the three sums over the steps in one pass: exposed, advances and
+    # exposed - clip, [J, 1 + 2S]
+    sums = step_sum(torch.cat(
+        [exposed[:, :, None], advances, ftz(exposed[:, :, None] - clip)],
+        dim=2,
+    ))
+    denom = torch.clamp_min(sums[:, 0], 1e-30)
+    shares = ftz(sums[:, 1:s + 1] / denom[:, None])
+    gains = ftz(torch.clamp_min(sums[:, s + 1:], 0.0) / denom[:, None])
     return FleetPacket(f, advances, lead, gap, exposed, shares, gains)
 
 

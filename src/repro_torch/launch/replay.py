@@ -18,8 +18,9 @@ the final service snapshot.
 kernel or the four-dispatch reference (the frontier and what-if kernels,
 launched separately); the two reports are identical outside wall-clock
 fields.  The kernels run on `--device cuda` (the default; raises without
-a GPU) or as their plain torch versions with `--device cpu`.  `--shards`
-needs the sharded fleet service, which the port does not have yet.
+a GPU) or as their plain torch versions with `--device cpu`.  `--shards N`
+replays through an N-shard `ShardedFleetService` (one CUDA stream per
+shard); its report equals the unsharded one outside wall-clock fields.
 
 `--save-trace PATH` additionally writes the generated synthetic trace
 to disk (a convenient way to produce a trace file to inspect or to
@@ -56,9 +57,10 @@ def make_argparser() -> argparse.ArgumentParser:
                         "the four-dispatch reference (bit-identical; "
                         "four-dispatch is the triage fallback)")
     p.add_argument("--shards", type=int, default=None,
-                   help="replay through an N-shard sharded fleet service "
-                        "(not in the port yet: raises "
-                        "NotImplementedError)")
+                   help="replay through an N-shard ShardedFleetService "
+                        "(stable job-id hash partition, one CUDA stream "
+                        "per shard; the report is bit-identical to the "
+                        "unsharded replay outside wall-clock fields)")
     p.add_argument("--shard-workers", default="thread",
                    choices=["thread", "inline"],
                    help="per-shard lanes under --shards (thread = "

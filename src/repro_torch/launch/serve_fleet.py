@@ -27,8 +27,10 @@ host incident, `fabric` a switch incident on the shared uplink) and an
 
 `--device cuda` (the default) runs the tick kernel and the co-activation
 kernel on the GPU and raises where there is none; `--device cpu` runs
-their plain torch versions.  The sharded service (`--shards`) is not
-part of this package yet.  `--max-windows` bounds each job's retained
+their plain torch versions.  `--shards N` serves through a
+`ShardedFleetService` (N shards, each on a CUDA stream of its own, with
+the incident tier at the coordinator); its answers equal the
+single-process service's.  `--max-windows` bounds each job's retained
 temporal history (memory knob for very long runs).
 """
 from __future__ import annotations
@@ -39,7 +41,7 @@ import json
 import time
 
 from ..core import WindowAggregator
-from ..fleet import FleetService
+from ..fleet import FleetService, ShardedFleetService
 from ..incidents import EscalationController, IncidentEngine
 from ..sim import ClusterSpec, simulate
 from ..sim.scenarios import (
@@ -110,6 +112,22 @@ def make_argparser() -> argparse.ArgumentParser:
                         "state per job (pass-through to FleetRegistry "
                         "regime_windows; default 4).  The knob that "
                         "bounds memory on very long runs")
+    p.add_argument("--shards", type=int, default=None,
+                   help="serve through a ShardedFleetService with this "
+                        "many worker shards (stable job-id hash "
+                        "partition; answers are bit-identical to the "
+                        "default single-process service).  Each shard "
+                        "launches its kernels on a CUDA stream of its "
+                        "own; with several CUDA devices visible the "
+                        "shards are spread over them")
+    p.add_argument("--shard-workers", default="thread",
+                   choices=["thread", "inline"],
+                   help="per-shard execution lanes under --shards: "
+                        "'thread' overlaps wire decode with kernel "
+                        "launches across shards; 'inline' runs shards "
+                        "one after another (the deterministic debugging "
+                        "reference: same outputs, only wall-clock "
+                        "differs)")
     p.add_argument("--obs", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="self-observability (obs): tick-phase "
@@ -198,11 +216,6 @@ def _build_jobs(args) -> list[dict]:
 
 
 def run(args) -> dict:
-    if getattr(args, "shards", None):
-        raise NotImplementedError(
-            "--shards needs the sharded fleet service, which comes with "
-            "slice 3 of the port"
-        )
     device = getattr(args, "device", "cuda")
     engine = (
         IncidentEngine(device=device) if args.topology != "none" else None
@@ -212,13 +225,24 @@ def run(args) -> dict:
         if engine is not None
         else None
     )
-    service = FleetService(
-        window_capacity=args.window, evict_after=2, degrade_after=2,
-        regime_windows=args.max_windows or 4,
-        incidents=engine,
-        device=device,
-        obs=getattr(args, "obs", True),
-    )
+    obs_on = getattr(args, "obs", True)
+    if args.shards:
+        service = ShardedFleetService(
+            shards=args.shards, workers=args.shard_workers,
+            window_capacity=args.window, evict_after=2, degrade_after=2,
+            regime_windows=args.max_windows or 4,
+            incidents=engine,
+            device=device,
+            obs=obs_on,
+        )
+    else:
+        service = FleetService(
+            window_capacity=args.window, evict_after=2, degrade_after=2,
+            regime_windows=args.max_windows or 4,
+            incidents=engine,
+            device=device,
+            obs=obs_on,
+        )
     jobs = _build_jobs(args)
     packets_sent = 0
     bytes_sent = 0
@@ -271,6 +295,8 @@ def run(args) -> dict:
                 controller.plan(service.current_tick, engine.incidents())
             )
     elapsed = time.perf_counter() - t0
+    if args.shards:
+        service.close()
 
     snapshot = service.snapshot()
     # the self-observability section is top-level in the summary (the
@@ -280,7 +306,7 @@ def run(args) -> dict:
     out = {
         "jobs": args.jobs,
         "rounds": args.rounds,
-        "shards": 0,  # the single-process service
+        "shards": args.shards or 0,
         "wire": args.wire,
         "compress": args.compress,
         "packets_sent": packets_sent,

@@ -30,8 +30,8 @@ final service snapshot.
 
 The service's tick kernels (and the incident tier's co-activation
 kernel) run on `device`: CUDA by default, or their plain torch versions
-with ``device="cpu"``.  Replaying through a sharded service waits for the
-port's sharded fleet service (slice 3a).
+with ``device="cpu"``; `shards` replays through a `ShardedFleetService`
+on the same device, one CUDA stream per shard.
 """
 from __future__ import annotations
 
@@ -267,18 +267,15 @@ def replay_trace(
     `fused` picks the kernel refresh path (megakernel vs the
     four-dispatch reference — bit-identical by contract, so the
     resulting reports differ only in wall-clock fields); it is ignored
-    when `service` is caller-owned.  `shards` (an N-shard replay) needs
-    the sharded fleet service, which the port does not have yet: it
-    raises `NotImplementedError`.  `device` is where the service's and
+    when `service` is caller-owned.  `shards` replays through an
+    N-shard `fleet.shard.ShardedFleetService` instead (also ignored
+    with a caller-owned service) — reports differ from the unsharded
+    replay only in wall-clock fields, the second bit-identity contract
+    the replay front end validates.  `device` is where the service's and
     the incident engine's kernels run ("cuda", the default, raises
     without a GPU; "cpu" runs their plain versions); it is ignored with
     a caller-owned service.
     """
-    if shards:
-        raise NotImplementedError(
-            "replaying through N shards needs the sharded fleet service, "
-            "which comes with slice 3a of the port"
-        )
     report = ReplayReport(
         trace_name=trace.name,
         ticks=trace.ticks,
@@ -290,20 +287,35 @@ def replay_trace(
             "skip_reasons": dict(trace.stats.skip_reasons),
         },
     )
+    owned = service is None
     if service is None:
         engine: "IncidentEngine | None" = None
         if incidents:
             from ..incidents import IncidentEngine
 
             engine = IncidentEngine(device=device)
-        service = FleetService(
-            window_capacity=trace.window_steps,
-            evict_after=evict_after,
-            incidents=engine,
-            fused=fused,
-            obs=obs,
-            device=device,
-        )
+        if shards:
+            from ..fleet import ShardedFleetService
+
+            service = ShardedFleetService(
+                shards=shards,
+                workers=shard_workers,
+                window_capacity=trace.window_steps,
+                evict_after=evict_after,
+                incidents=engine,
+                fused=fused,
+                obs=obs,
+                device=device,
+            )
+        else:
+            service = FleetService(
+                window_capacity=trace.window_steps,
+                evict_after=evict_after,
+                incidents=engine,
+                fused=fused,
+                obs=obs,
+                device=device,
+            )
 
     live: dict[str, _LiveJob] = {}
     ever_seen: set[str] = set()
@@ -445,4 +457,6 @@ def replay_trace(
     report.obs = report.snapshot.pop("obs", {})
     if getattr(service, "incidents", None) is not None:
         report.incidents = service.incidents.table()
+    if owned and shards:
+        service.close()
     return report

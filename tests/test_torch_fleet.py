@@ -7,7 +7,6 @@ reference route (`FleetService(fused=False)`).  Their routes must name the same 
 regime) with `recoverable_s` within rtol 1e-4, and their snapshots must
 agree apart from the wall-clock `obs` section.
 """
-import argparse
 import functools
 
 import numpy as np
@@ -188,8 +187,23 @@ class TestFourDispatchRoute:
             )
 
 
-class TestNotYetPorted:
-    def test_shards_raise(self):
-        args = argparse.Namespace(topology="none", shards=2)
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            port_serve.run(args)
+#: summary fields that carry wall-clock state
+_WALL_CLOCK = ("ingest_jobs_per_second", "obs")
+
+
+class TestShards:
+    @pytest.mark.parametrize("topology", ["none", "fabric"])
+    def test_sharded_serve_equals_unsharded(self, topology):
+        """`--shards 3 --device cpu`: the same summary as the unsharded
+        run outside the wall-clock fields, and `"shards": 3`."""
+        argv = ARGV + ["--topology", topology, "--device", "cpu"]
+        one = port_serve.run(port_serve.make_argparser().parse_args(argv))
+        three = port_serve.run(port_serve.make_argparser().parse_args(
+            argv + ["--shards", "3"]
+        ))
+        assert (one["shards"], three["shards"]) == (0, 3)
+        for out in (one, three):
+            for key in _WALL_CLOCK + ("shards",):
+                out.pop(key)
+        assert three == one
+        assert three["routing"]

@@ -11,13 +11,15 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
+import time
 import types
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.fleet import FleetService  # noqa: E402
+from repro_torch.fleet import FleetService, ShardedFleetService  # noqa: E402
 from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import _lib, fused  # noqa: E402
 from repro_torch.kernels.frontier import frontier as kernels  # noqa: E402
@@ -63,7 +65,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    for name in ("repro_torch.fleet.service", "repro_torch.kernels.frontier.fused",
+    for name in ("repro_torch.fleet.service", "repro_torch.fleet.shard",
+                 "repro_torch.kernels.frontier.fused",
                  "repro_torch.launch.serve_fleet", "repro_torch.telemetry.packets",
                  "repro_torch.kernels.frontier.incidents",
                  "repro_torch.incidents", "repro_torch.incidents.engine",
@@ -84,6 +87,24 @@ def test_service_without_gpu_raises(monkeypatch):
         serve_fleet.run(serve_fleet.make_argparser().parse_args(["--jobs", "2"]))
     with pytest.raises(RuntimeError, match="CUDA"):
         fused.fused_fleet_tick(torch.ones(1, 2, 3, 4).numpy())
+
+
+def test_sharded_service_without_gpu_raises(monkeypatch):
+    """No shard falls back to the CPU: `device="cuda"` (the default)
+    raises without a card, through both drivers too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedFleetService(shards=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedFleetService(shards=3, devices=None, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_fleet.run(serve_fleet.make_argparser().parse_args(
+            ["--jobs", "2", "--shards", "3"]
+        ))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.run(replay.make_argparser().parse_args(
+            ["--synth", "--jobs", "2", "--ticks", "2", "--shards", "3"]
+        ))
 
 
 def test_incident_engine_without_gpu_raises(monkeypatch):
@@ -264,3 +285,137 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# -- thread safety: the sharded service's lanes load and launch at once ------
+
+
+def _in_threads(fn, n=8):
+    """Run `fn(k)` on `n` threads at once with a short switch interval;
+    every thread must finish."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=fn, args=(k,)) for k in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+
+
+def test_concurrent_load_builds_and_binds_once(monkeypatch):
+    """Eight threads asking for one library at once: one build, one
+    `CDLL`, one bind, and every thread gets the same library."""
+    calls = {"build": 0, "cdll": 0, "bind": 0}
+
+    def slow_build(name):
+        calls["build"] += 1
+        time.sleep(0.05)
+        return pathlib.Path("/nonexistent") / f"lib{name}.so"
+
+    def fake_cdll(path):
+        calls["cdll"] += 1
+        return types.SimpleNamespace(path=path)
+
+    def bind(lib):
+        calls["bind"] += 1
+        time.sleep(0.01)
+
+    monkeypatch.setattr(_lib, "_loaded", {})
+    monkeypatch.setattr(_lib, "build", slow_build)
+    monkeypatch.setattr(_lib.ctypes, "CDLL", fake_cdll)
+    got = [None] * 8
+
+    def load(k):
+        got[k] = _lib.load_library("fused_tick.cu", bind)
+
+    _in_threads(load)
+    assert calls == {"build": 1, "cdll": 1, "bind": 1}
+    assert all(lib is got[0] for lib in got)
+
+
+def test_concurrent_builds_use_their_own_temporary_files(tmp_path, monkeypatch):
+    """Two threads of one process building one source at once: distinct
+    temporary outputs (threads share a pid), one whole library left, no
+    temporary file behind."""
+    body = b"x" * 4096
+    targets = []
+
+    def slow_nvcc(cmd, **kw):
+        out = pathlib.Path(cmd[cmd.index("-o") + 1])
+        targets.append(out.name)
+        with open(out, "wb") as f:
+            for i in range(0, len(body), 512):
+                f.write(body[i:i + 512])
+                f.flush()
+                time.sleep(0.005)
+        return subprocess.CompletedProcess(cmd, 0, stdout="ptxas", stderr="")
+
+    monkeypatch.setattr(_lib, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_lib, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_lib.subprocess, "run", slow_nvcc)
+    paths = [None, None]
+
+    def build(k):
+        paths[k] = _lib.build("coactivation.cu")
+
+    _in_threads(build, n=2)
+    assert len(targets) == 2 and targets[0] != targets[1]
+    assert paths[0] == paths[1] and paths[0].read_bytes() == body
+    assert not list(tmp_path.glob("*.tmp.so"))
+
+
+class _RecordingLock:
+    """A lock that counts how often it was taken."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.taken = 0
+
+    def __enter__(self):
+        self._lock.acquire()
+        self.taken += 1
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
+def test_launch_counts_lose_nothing_across_threads(monkeypatch):
+    """Every wrapper's count is bumped by `_lib.count_launch`, under its
+    lock: eight threads adding at once lose no count, and each add took
+    the lock."""
+    lock = _RecordingLock()
+    monkeypatch.setattr(_lib, "_count_lock", lock)
+    monkeypatch.setattr(fused, "launches", 0)
+    monkeypatch.setattr(coactivation, "launches", 0)
+    monkeypatch.setattr(kernels, "launches", dict.fromkeys(kernels.launches, 0))
+    reps = 2000
+
+    def bump(k):
+        for _ in range(reps):
+            # as the wrappers call it: their globals, or the dict of counts
+            _lib.count_launch(vars(fused), "launches")
+            _lib.count_launch(vars(coactivation), "launches")
+            _lib.count_launch(kernels.launches, "whatif_matrix")
+
+    _in_threads(bump)
+    assert fused.launches == coactivation.launches == 8 * reps
+    assert kernels.launches == {"frontier_window": 0,
+                                "whatif_matrix": 8 * reps, "regime_stats": 0}
+    assert lock.taken == 3 * 8 * reps
+
+
+def test_wrappers_count_through_the_lock():
+    """Each CUDA wrapper counts its launch with the shared locked helper,
+    never with a bare read-modify-write."""
+    import inspect
+
+    for fn in (fused._fused_tick_cuda, coactivation._co_activation_cuda,
+               kernels._frontier_cuda, kernels._whatif_cuda,
+               kernels._regime_cuda):
+        text = inspect.getsource(fn)
+        assert text.count("_lib.count_launch(") == 1, fn.__name__
+        assert "launches +=" not in text and "] += 1" not in text, fn.__name__

@@ -220,12 +220,22 @@ class TestReplayCli:
         ))
         assert again["windows_replayed"] == port["windows_replayed"]
 
-    def test_shards_raise(self):
-        args = port_cli.make_argparser().parse_args(
-            self.ARGV + ["--device", "cpu", "--shards", "2"]
-        )
-        with pytest.raises(NotImplementedError, match="slice 3a"):
-            port_cli.run(args)
+    @pytest.mark.parametrize("workers", ["thread", "inline"])
+    def test_sharded_replay_equals_unsharded(self, workers):
+        """`--shards 3`: the same report as the unsharded replay outside
+        the wall-clock fields, on the four-dispatch route and with the
+        incident tier at the coordinator."""
+        argv = ["--synth", "--jobs", "4", "--ticks", "6", "--window", "8",
+                "--ranks", "8", "--tick-path", "four-dispatch", "--incidents",
+                "--shared-switch", "--device", "cpu"]
+        one = port_cli.run(port_cli.make_argparser().parse_args(argv))
+        three = port_cli.run(port_cli.make_argparser().parse_args(
+            argv + ["--shards", "3", "--shard-workers", workers]
+        ))
+        assert (one["shards"], three["shards"]) == (0, 3)
+        one.pop("shards"), three.pop("shards")
+        assert _report(three) == _report(one)
+        assert any(r["scope"] == "fleet" for r in three["incidents"])
 
     def test_device_flag(self):
         parser = port_cli.make_argparser()
