@@ -91,7 +91,25 @@ package — in these phases, and exits non-zero if any fails:
            frontier and what-if times from the replay's largest group, the
            regime times from the tick's;
   profile  the service and fabric runs once more under torch.profiler:
-           device busy time by kernel against the service's tick time.
+           device busy time by kernel against the service's tick time;
+  train    the training driver with the per-job monitor
+           (`python -m repro_torch.launch.train`): paper-gpt-125m at full
+           width (12 layers, d_model 768, vocab 50,304, bf16, remat),
+           batch 8 x 512, 60 steps, 20-step windows: the loss falls,
+           three windows each labelled `frontier_accounting` with shares
+           summing to 1 +- 0.02, device events sampled and ready; prints
+           the median step, tokens/s, `monitor_overhead` and peak memory,
+           and the card's busy share under torch.profiler over 20 steps;
+           the same run with a 50 ms data stall every 10 steps (the
+           prefetch holds ~3 steps, so it hides it: printed) and with a
+           stall of 10 median steps, which must route a window to
+           `data.next_wait`; one train step of the same model cut to 2
+           layers in f32, TF32 off, on the card against the CPU from the
+           same weights (loss rtol 1e-5; 99.9 % of parameters within 1e-6,
+           all within 2 x lr; the bf16 loss within 2e-2 of the f32 one);
+           and `TorchDistTransport` on a one-rank NCCL group: a window
+           gathered on cuda:0 unchanged, and after the group is destroyed
+           a gather that raises nothing and falls back to the local parts.
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -1157,6 +1175,229 @@ def shard_phase(torch, np, fused, kernels, coact, serve_fleet, replay,
     )), flush=True)
 
 
+TRAIN_ARGS = ["--arch", "paper-gpt-125m", "--steps", "60", "--batch", "8",
+              "--seq", "512", "--window", "20", "--log-every", "1000"]
+#: --data-stall-ms of the stall run the prefetch hides (a stall every 10
+#: steps); the checked stall run takes this many median steps of run (a)
+TRAIN_HIDDEN_STALL_MS = 50.0
+TRAIN_STALL_STEPS = 10
+#: steps of the profiled run
+TRAIN_PROFILE_STEPS = 20
+#: card against CPU: one step of paper-gpt-125m at full width, 2 layers,
+#: f32, on a batch of this shape
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = (4, 256)
+
+
+def train_run(torch, train, argv) -> tuple[dict, dict]:
+    """`train.run` on the card, keeping its Monitor: the summary, and the
+    step time, throughput, device-events ratio and peak memory."""
+    from unittest import mock
+
+    monitors = []
+
+    class Kept(train.Monitor):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            monitors.append(self)
+
+    args = train.make_argparser().parse_args(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "Monitor", Kept):
+        summary = train.run(args)
+    wall = time.perf_counter() - t0
+    (mon,) = monitors
+    walls = sorted(r.wall for r in mon.recorder.history)
+    step_s = walls[len(walls) // 2]
+    stats = dict(
+        wall_s=wall, steps=len(walls), median_step_ms=step_s * 1e3,
+        tokens_per_s=args.batch * args.seq / step_s,
+        train_seconds=summary["train_seconds"],
+        monitor_overhead=summary["monitor_overhead"],
+        events_ready_ratio=mon.events.ready_ratio,
+        events_attempts=mon.events.attempts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        first_loss=summary["first_loss"], last_loss=summary["last_loss"],
+        windows=[dict(routing=w["routing"], data_share=w["shares"][0],
+                      shares=w["shares"]) for w in summary["windows"]],
+        actions=[a["kind"] for a in summary["actions"]],
+    )
+    return summary, stats
+
+
+def check_windows(summary, n: int) -> None:
+    windows = summary["windows"]
+    if len(windows) != n:
+        raise AssertionError(f"{len(windows)} windows, not {n}: {windows}")
+    for w in windows:
+        if "frontier_accounting" not in w["labels"]:
+            raise AssertionError(f"window {w['index']} labels {w['labels']}")
+        if abs(sum(w["shares"]) - 1.0) > 0.02:
+            raise AssertionError(f"window {w['index']} shares {w['shares']}")
+
+
+def close_params(got, want, lr: float) -> tuple[int, int, float]:
+    """Elements off by more than 1e-6, elements, the largest difference;
+    every element must lie within 2 x lr."""
+    off = total = 0
+    worst = 0.0
+    for name, w in want.items():
+        d = (got[name].detach().cpu().double() - w.detach().double()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-6).sum())
+        total += d.numel()
+    if worst > 2 * lr:
+        raise AssertionError(f"a parameter moved {worst} from the CPU's, over 2 x lr")
+    return off, total, worst
+
+
+def card_against_cpu(torch, np) -> dict:
+    """One train step of paper-gpt-125m at full width (2 layers, f32) on
+    the card and on the CPU from the same weights and batch, TF32 off:
+    losses within rtol 1e-5, parameters as the CPU test holds them (99.9 %
+    within 1e-6, all within 2 x lr); the bf16 card loss at step 0 within
+    2e-2 relative of the f32 one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, lr_at
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch, seq = TRAIN_CHECK_BATCH
+    base = dataclasses.replace(
+        get_config("paper-gpt-125m"), n_layers=TRAIN_CHECK_LAYERS,
+        attn_q_chunk=seq, attn_kv_chunk=seq)
+    f32 = dataclasses.replace(base, param_dtype="float32", compute_dtype="float32")
+    host = SyntheticTokens(base.vocab_size, batch, seq, seed=1).batch_at(0)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1)  # the CPU test's
+    lr = float(lr_at(opt, torch.zeros(())))
+    out = {}
+    for name, cfg, devices in (("f32", f32, ("cuda", "cpu")), ("bf16", base, ("cuda",))):
+        model = build_model(cfg)
+        step = build_train_step(model, opt)
+        for dev in devices:
+            state = init_train_state(model, torch.Generator().manual_seed(0), dev)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            state, metrics = step(state, b)
+            out[(name, dev)] = (float(metrics["loss"]),
+                                dict(state.params.named_parameters()))
+    (card, card_p), (cpu, cpu_p) = out[("f32", "cuda")], out[("f32", "cpu")]
+    bf16 = out[("bf16", "cuda")][0]
+    if abs(card - cpu) > 1e-5 * abs(cpu):
+        raise AssertionError(f"f32 loss on the card {card} vs the CPU {cpu}")
+    off, total, worst = close_params(card_p, cpu_p, lr)
+    if off > 0.001 * total:
+        raise AssertionError(f"{off} of {total} parameter elements off by > 1e-6")
+    if abs(bf16 - card) > 2e-2 * abs(card):
+        raise AssertionError(f"bf16 loss {bf16} vs f32 {card}")
+    return dict(loss_f32_cuda=card, loss_f32_cpu=cpu, loss_bf16_cuda=bf16,
+                params_off_1e6=off, params=total, max_param_diff=worst, lr=lr)
+
+
+def nccl_gather(torch, np) -> dict:
+    """A one-rank NCCL group: `TorchDistTransport` gathers a window on
+    cuda:0 unchanged; after the group is destroyed a gather raises
+    nothing and falls back to the local-only parts."""
+    import torch.distributed as dist
+
+    from repro_torch.telemetry import TelemetryGather, TorchDistTransport
+
+    path = os.path.join(ROOT, "build", f"nccl_init_{os.getpid()}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        transport = TorchDistTransport()
+        if transport.device != torch.device("cuda", 0):
+            raise AssertionError(f"NCCL gather buffers on {transport.device}")
+        local = np.random.default_rng(0).standard_normal((20, 6))
+        res = TelemetryGather(transport, 0).gather_window(local)
+        if not res.ok or res.window.shape != (20, 1, 6) or not np.array_equal(
+            res.window[:, 0, :], local
+        ):
+            raise AssertionError(f"NCCL gather: ok={res.ok} error={res.error!r}")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(path):
+            os.remove(path)
+    # with the group gone the all_gather raises inside the transport,
+    # which answers with the local-only parts (the very array it was
+    # given): for one rank those are the whole group, so `ok` stays true
+    parts = transport.allgather(0, local, 5.0)
+    if len(parts) != 1 or parts[0] is not local:
+        raise AssertionError("a gather after destroy did not fall back to local")
+    after = TelemetryGather(transport, 0).gather_window(local)
+    return dict(ok=res.ok, elapsed_s=res.elapsed_s, after_destroy_ok=after.ok,
+                after_destroy_present=list(after.present_ranks))
+
+
+def train_profile(torch, train) -> dict:
+    """A short run of the driver under torch.profiler (device activity
+    only): the card's busy time per step against the step's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = TRAIN_ARGS + ["--steps", str(TRAIN_PROFILE_STEPS), "--window",
+                         str(TRAIN_PROFILE_STEPS), "--device", "cuda"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = train.run(train.make_argparser().parse_args(argv))
+    torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return dict(steps=TRAIN_PROFILE_STEPS, device_busy_s=busy_s,
+                train_seconds=summary["train_seconds"],
+                device_busy_share=busy_s / summary["train_seconds"],
+                device_busy_ms_per_step=busy_s / TRAIN_PROFILE_STEPS * 1e3,
+                kernel_launches_per_step=sum(r[2] for r in rows) / TRAIN_PROFILE_STEPS,
+                top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]])
+
+
+def train_phase(torch, np, smi: str) -> None:
+    """The training driver with the monitor on the card: (a) paper-gpt-125m
+    at full width, bf16 with remat, and the same run profiled; (b) data
+    stalls, one the prefetch hides and one it cannot; (c) one step on the
+    card against the CPU; (d) the gather on NCCL."""
+    from repro_torch.launch import train
+
+    summary, stats = train_run(torch, train, TRAIN_ARGS)
+    check_windows(summary, 3)
+    if not summary["last_loss"] < summary["first_loss"]:
+        raise AssertionError(f"loss {summary['first_loss']} -> {summary['last_loss']}")
+    if not stats["events_ready_ratio"] > 0:
+        raise AssertionError(f"device events: ready_ratio {stats['events_ready_ratio']}")
+    print("train " + json.dumps(dict(card=smi, **stats)), flush=True)
+    print("train_profile " + json.dumps(train_profile(torch, train)), flush=True)
+    # a stall shows only past what the prefetch holds: two queued batches
+    # and the one in hand, ~3 steps
+    long_stall = round(TRAIN_STALL_STEPS * stats["median_step_ms"])
+    for stall in (TRAIN_HIDDEN_STALL_MS, long_stall):
+        stalled, s_stats = train_run(
+            torch, train, TRAIN_ARGS + ["--data-stall-ms", str(stall)])
+        check_windows(stalled, 3)
+        routed = any("data.next_wait" in w["routing"] for w in stalled["windows"])
+        print("train_stall " + json.dumps(dict(
+            stall_ms=stall, routed_to_data=routed, card=smi, **s_stats)), flush=True)
+        if stall == long_stall and not routed:
+            raise AssertionError(f"a {stall} ms stall every 10 steps routed no "
+                                 f"window to data.next_wait: {stalled['windows']}")
+    print("train_check " + json.dumps(card_against_cpu(torch, np)), flush=True)
+    print("train_nccl " + json.dumps(nccl_gather(torch, np)), flush=True)
+
+
 def profile_phase(torch, serve_fleet, label, argv) -> None:
     """A service run once more under torch.profiler: device busy time by
     kernel, against the service's own tick time (obs)."""
@@ -1183,6 +1424,18 @@ def profile_phase(torch, serve_fleet, label, argv) -> None:
         top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]
              + [r for r in rows[8:] if "coact" in r[1] or "fused_tick" in r[1]]],
     )), flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def largest(rows) -> dict:
@@ -1284,6 +1537,8 @@ def main() -> int:
             raise AssertionError(f"the shard phase handed {name} no group")
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
+    smi = card_name()
+    train_phase(torch, np, smi)
     if FAILURES:
         fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
     case_rows = {name: [r["four_dispatch"][name] for r in rows]
@@ -1306,14 +1561,7 @@ def main() -> int:
                    + shard_rows["regime_stats"],
                    largest(tick_rows["regime_stats"])),
     ]}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

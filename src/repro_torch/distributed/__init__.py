@@ -1,1 +1,5 @@
-"""Distribution helpers: the telemetry wire codecs (`compression`)."""
+"""Distribution helpers: the telemetry wire codecs (`compression`) and the
+monitor's operational policy (`policy`)."""
+from .policy import Action, MonitorPolicy
+
+__all__ = ["Action", "MonitorPolicy"]

@@ -24,7 +24,9 @@ from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import _lib, fused  # noqa: E402
 from repro_torch.kernels.frontier import frontier as kernels  # noqa: E402
 from repro_torch.kernels.frontier import incidents as coactivation  # noqa: E402
-from repro_torch.launch import replay, serve_fleet  # noqa: E402
+from repro_torch.launch import replay, serve_fleet, train  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.replay import generate_trace, parse_trace, replay_trace  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -75,8 +77,38 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.kernels.frontier.frontier",
                  "repro_torch.kernels.frontier.ref",
                  "repro_torch.replay", "repro_torch.replay.engine",
-                 "repro_torch.replay.trace", "repro_torch.launch.replay"):
+                 "repro_torch.replay.trace", "repro_torch.launch.replay",
+                 "repro_torch.telemetry.collector",
+                 "repro_torch.telemetry.device_events",
+                 "repro_torch.telemetry.gather",
+                 "repro_torch.distributed.policy", "repro_torch.configs",
+                 "repro_torch.configs.paper_gpt", "repro_torch.models.layers",
+                 "repro_torch.models.attention",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.model_zoo", "repro_torch.optim.adamw",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert name in out["modules"]
+
+
+def test_train_driver_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    """`python -m repro_torch.launch.train` runs on the card unless asked
+    for the CPU; without one it raises before building anything."""
+    args = train.make_argparser().parse_args(["--reduced", "--steps", "2"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(get_config("paper-gpt-125m").reduced()).init()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "2"],
+        capture_output=True, text=True, env=_env(CUDA_VISIBLE_DEVICES=""),
+        cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert '"first_loss"' not in proc.stdout
 
 
 def test_service_without_gpu_raises(monkeypatch):
