@@ -109,7 +109,29 @@ package — in these phases, and exits non-zero if any fails:
            all within 2 x lr; the bf16 loss within 2e-2 of the f32 one);
            and `TorchDistTransport` on a one-rank NCCL group: a window
            gathered on cuda:0 unchanged, and after the group is destroyed
-           a gather that raises nothing and falls back to the local parts.
+           a gather that raises nothing and falls back to the local parts;
+  serve    the model serve driver and its decode path
+           (`python -m repro_torch.launch.serve`), one JSON line a run:
+           (a) paper-gpt-125m at full width and depth (12 layers, d 768,
+           vocab 50,304, bf16), batch 8, a 128-token prompt fed token by
+           token, 128 greedy tokens, 16-step windows: 128 decoded, the
+           windows labelled, the routing non-empty; prints tokens/s, the
+           median decode step, peak memory, and the card's busy share
+           under torch.profiler over 32 decode steps; (b) the same model
+           cut to 2 layers in f32, TF32 off: 64 teacher-forced decode
+           steps in both cache layouts on the card and on the CPU from
+           the same weights, logits within atol/rtol 1e-4, the two
+           layouts on the card within 1e-5, the agreeing greedy tokens
+           printed; (c) mamba2-130m at full width and depth, 8 x (32 +
+           32), then (b) at 2 layers; (d) hymba-1.5b at full width and
+           depth, 4 x (16 + 16), then its ring buffer at 2 layers in f32:
+           1,040 teacher-forced steps past the 1,024-token window, card
+           against CPU to 1e-4; (e) phi3.5-moe-42b-a6.6b at full width
+           cut to 2 layers (its 32 need ~84 GB in bf16), 8 x (16 + 16):
+           at least one decode step drops an assignment at an expert's
+           capacity (counted with `moe.dropped`), then card against CPU
+           at 1 layer in f32; (f) internvl2-1b at full width and depth,
+           8 x (32 + 32) (the vlm family's decode).
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -1398,6 +1420,242 @@ def train_phase(torch, np, smi: str) -> None:
     print("train_nccl " + json.dumps(nccl_gather(torch, np)), flush=True)
 
 
+#: the serve phase (a): the model serve driver at paper-gpt-125m's full
+#: width and depth
+SERVE_ARGS = ["--arch", "paper-gpt-125m", "--batch", "8", "--prompt-len", "128",
+              "--decode", "128", "--window", "16"]
+SERVE_PROFILE_STEPS = 32
+#: full-depth serve runs of the other families: (arch, layers or None for
+#: the config's own, batch, prompt, decode); phi3.5-moe's 32 layers need
+#: ~84 GB in bf16, more than one card holds, so it is cut in depth only
+SERVE_FAMILY_RUNS = (
+    ("mamba2-130m", None, 8, 32, 32),
+    ("hymba-1.5b", None, 4, 16, 16),
+    ("phi3.5-moe-42b-a6.6b", 2, 8, 16, 16),
+    ("internvl2-1b", None, 8, 32, 32),
+)
+#: teacher-forced decode on the card against the CPU, f32, TF32 off:
+#: (arch, layers, batch, steps, cache layouts); hymba decodes past its
+#: 1,024-token window
+SERVE_CHECKS = (
+    ("paper-gpt-125m", 2, 8, 64, ("bskd", "bksd")),
+    ("mamba2-130m", 2, 8, 64, ("bskd",)),
+    ("hymba-1.5b", 2, 2, 1040, ("bskd",)),
+    ("phi3.5-moe-42b-a6.6b", 1, 8, 16, ("bskd",)),
+)
+#: card against CPU (atol and rtol), and the two cache layouts on the card
+SERVE_TOL = 1e-4
+LAYOUT_TOL = 1e-5
+
+
+def serve_run(torch, serve, argv, cfg=None) -> tuple[dict, dict]:
+    """`serve.run` on the card, keeping its Monitor (and serving `cfg`
+    in place of the named config when given): the JSON, and the median
+    decode step, wall, and peak memory (also less what was allocated
+    before the run)."""
+    from unittest import mock
+
+    monitors = []
+
+    class Kept(serve.Monitor):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            monitors.append(self)
+
+    args = serve.make_argparser().parse_args(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()  # what earlier phases still hold
+    patches = [mock.patch.object(serve, "Monitor", Kept)]
+    if cfg is not None:
+        patches.append(mock.patch.object(serve, "get_config", lambda name: cfg))
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        out = serve.run(args)
+    wall = time.perf_counter() - t0
+    (mon,) = monitors
+    walls = sorted(r.wall for r in mon.recorder.history[1:])  # decode steps
+    if out["decoded"] != args.decode:
+        raise AssertionError(f"{args.arch}: decoded {out['decoded']} of {args.decode}")
+    peak = torch.cuda.max_memory_allocated()
+    return out, dict(wall_s=wall, median_decode_step_ms=walls[len(walls) // 2] * 1e3,
+                     max_memory_allocated=peak, peak_memory_of_run=peak - start)
+
+
+def serve_profile(torch) -> dict:
+    """paper-gpt-125m at full width: after a 128-token prompt, 32 greedy
+    decode steps as the driver takes them (serve step, argmax, a wait on
+    an event after it, the copy to the host) under torch.profiler (device
+    activity): the card's busy share of their wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import build_model
+
+    batch, prompt = 8, 128
+    seq = prompt + SERVE_PROFILE_STEPS
+    model = build_model(get_config("paper-gpt-125m"))
+    module = model.init(torch.Generator().manual_seed(0), "cuda")
+    step = build_serve_step(model, seq)
+    caches = model.init_caches(module, batch, seq)
+    tokens = torch.randint(0, model.cfg.vocab_size, (batch, prompt),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    for i in range(prompt):
+        logits, caches = step(module, caches, tokens[:, i:i + 1], i)
+    tok = torch.argmax(logits[:, -1:, :], dim=-1)
+    torch.cuda.synchronize()
+
+    def decode(j):
+        nonlocal tok, caches
+        logits, caches = step(module, caches, tok, prompt + j)
+        tok = torch.argmax(logits[:, -1:, :], dim=-1)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        tok[:, 0].cpu()
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(SERVE_PROFILE_STEPS):
+            decode(j)
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    n = SERVE_PROFILE_STEPS
+    return dict(steps=n, wall_s=wall, device_busy_s=busy_s,
+                device_busy_share=busy_s / wall, ms_per_step=wall / n * 1e3,
+                device_busy_ms_per_step=busy_s / n * 1e3,
+                kernel_launches_per_step=sum(r[2] for r in rows) / n,
+                top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]])
+
+
+def teacher_forced(torch, model, module, tokens, seq: int):
+    """Logits [steps, B, Vpad] of `tokens` [steps, B, 1] fed one a step
+    through `model.decode_step` on `module`'s device."""
+    caches = model.init_caches(module, tokens.shape[1], seq)
+    tokens = tokens.to(module.embed.device)
+    out = torch.empty((tokens.shape[0], tokens.shape[1], model.cfg.padded_vocab),
+                      dtype=torch.float32, device=module.embed.device)
+    for i in range(tokens.shape[0]):
+        logits, caches = model.decode_step(module, caches, tokens[i], i, seq)
+        out[i] = logits[:, 0]
+    return out.cpu()
+
+
+def allclose_err(torch, got, want, tol: float) -> tuple[float, float]:
+    """(max |got - want|, max of |got - want| - tol - tol * |want|): the
+    second is <= 0 when every element lies within atol = rtol = tol."""
+    diff = (got.double() - want.double()).abs()
+    return float(diff.max()), float((diff - tol - tol * want.double().abs()).max())
+
+
+def serve_check(torch, arch: str, layers: int, batch: int, steps: int,
+                layouts) -> dict:
+    """`arch` at full width cut to `layers`, f32: teacher-forced decode on
+    the card and on the CPU from the same weights (seed 0, drawn on the
+    CPU) in each cache layout of `layouts`; logits within SERVE_TOL, two
+    layouts on the card within LAYOUT_TOL; greedy agreement printed."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    base = dataclasses.replace(get_config(arch), n_layers=layers,
+                               param_dtype="float32", compute_dtype="float32")
+    tokens = torch.randint(0, base.vocab_size, (steps, batch, 1),
+                           generator=torch.Generator().manual_seed(1))
+    out = dict(arch=arch, layers=layers, batch=batch, steps=steps, dtype="float32",
+               window=base.window if base.attention == "sliding" else None)
+    card_logits = {}
+    for layout in layouts:
+        model = build_model(dataclasses.replace(base, cache_layout=layout))
+        cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        card = copy.deepcopy(cpu).cuda()
+        t0 = time.perf_counter()
+        got = teacher_forced(torch, model, card, tokens, steps)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = teacher_forced(torch, model, cpu, tokens, steps)
+        cpu_s = time.perf_counter() - t0
+        err, excess = allclose_err(torch, got, want, SERVE_TOL)
+        if not (torch.isfinite(got).all() and excess <= 0):
+            raise AssertionError(f"{arch} {layout}: card logits off the CPU's by {err}")
+        out[layout] = dict(
+            max_abs_err=err, card_s=card_s, cpu_s=cpu_s,
+            greedy_agree=int((got.argmax(-1) == want.argmax(-1)).sum()),
+            greedy_total=steps * batch)
+        card_logits[layout] = got
+        del card, cpu
+        torch.cuda.empty_cache()
+    if len(card_logits) == 2:
+        err, excess = allclose_err(torch, card_logits["bksd"], card_logits["bskd"], LAYOUT_TOL)
+        if excess > 0:
+            raise AssertionError(f"{arch}: bksd off bskd on the card by {err}")
+        out["layouts_max_abs_err"] = err
+    return out
+
+
+def serve_phase(torch, smi: str) -> None:
+    """The model serve driver and the decode path on the card: (a)
+    paper-gpt-125m at full width and depth, and 32 of its decode steps
+    profiled; (c)–(f) the other families' serve runs; (b)–(e) teacher-
+    forced decode on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    out, stats = serve_run(torch, serve, SERVE_ARGS)
+    if not out["last_window_labels"] or not out["last_window_routing"]:
+        raise AssertionError(f"serve windows: {out}")
+    print("serve " + json.dumps(dict(card=smi, **out, **stats)), flush=True)
+    print("serve_profile " + json.dumps(dict(card=smi, **serve_profile(torch))), flush=True)
+    for arch, layers, batch, prompt, decode in SERVE_FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        calls = []
+
+        def count(module, inputs, _out):
+            if isinstance(module, moe.MoE):
+                calls.append(moe.dropped(module, inputs[0], module.cfg))
+
+        with contextlib.ExitStack() as stack:
+            if cfg.family == "moe":  # the serve driver builds its own model
+                stack.callback(torch.nn.modules.module.register_module_forward_hook(
+                    count).remove)
+            run, stats = serve_run(torch, serve, [
+                "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+                "--decode", str(decode), "--window", "16"], cfg=cfg)
+        line = dict(card=smi, layers=cfg.n_layers, prompt_len=prompt, **run, **stats)
+        if cfg.family == "moe":
+            # one call a layer a step: the prompt's steps come first
+            drops = [int(d) for d in calls]
+            per_step = [sum(drops[i:i + layers]) for i in range(0, len(drops), layers)]
+            decode_drops = per_step[prompt:]
+            line.update(capacity=moe.capacity(batch, cfg), drops_prompt=sum(per_step[:prompt]),
+                        drops_decode=sum(decode_drops),
+                        decode_steps_with_drops=sum(d > 0 for d in decode_drops))
+            if not any(decode_drops):
+                raise AssertionError(f"{arch}: no decode step dropped at capacity")
+        print("serve_family " + json.dumps(line), flush=True)
+    for check in SERVE_CHECKS:
+        print("serve_check " + json.dumps(dict(card=smi, **serve_check(torch, *check))),
+              flush=True)
+
+
 def profile_phase(torch, serve_fleet, label, argv) -> None:
     """A service run once more under torch.profiler: device busy time by
     kernel, against the service's own tick time (obs)."""
@@ -1539,6 +1797,7 @@ def main() -> int:
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
     smi = card_name()
     train_phase(torch, np, smi)
+    serve_phase(torch, smi)
     if FAILURES:
         fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
     case_rows = {name: [r["four_dispatch"][name] for r in rows]

@@ -1,11 +1,12 @@
-"""The train step on one device.
+"""The train, prefill and serve steps on one device.
 
 `build_train_step` returns one function, built once and called every
 step: loss and gradients (with optional microbatch accumulation), the
 global-norm clip and AdamW, all queued on the parameters' device with no
-read-back to the host.  The reference's mesh, sharding plans and ZeRO-1
-optimizer-state sharding have no counterpart on one card; the prefill
-and serve step builders belong to the serving slice.
+read-back to the host.  `build_prefill_step` and `build_serve_step`
+return the forward pass and one decode token against the caches, both
+under `torch.inference_mode`.  The reference's mesh, sharding plans and
+ZeRO-1 optimizer-state sharding have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -18,7 +19,13 @@ from ..models.model_zoo import Model
 from ..models.transformer import TransformerLM, decay_mask
 from ..optim.adamw import AdamWConfig, OptState, apply_updates, init_opt
 
-__all__ = ["TrainState", "build_train_step", "init_train_state"]
+__all__ = [
+    "TrainState",
+    "build_prefill_step",
+    "build_serve_step",
+    "build_train_step",
+    "init_train_state",
+]
 
 
 @dataclasses.dataclass
@@ -105,3 +112,24 @@ def build_train_step(
         return TrainState(params=state.params, opt=opt, step=state.step + 1), metrics
 
     return train_step
+
+
+def build_prefill_step(model: Model, *, triangular: bool = False):
+    """``prefill(module, batch) -> logits`` (the full-sequence forward)."""
+
+    @torch.inference_mode()
+    def prefill(module: TransformerLM, batch: dict):
+        return model.forward(module, batch, triangular=triangular)
+
+    return prefill
+
+
+def build_serve_step(model: Model, seq_len: int):
+    """``serve(module, caches, tokens, index) -> (logits, caches)``: one
+    decode token at the absolute position `index` (a Python int); the
+    caches are written in place."""
+
+    def serve(module: TransformerLM, caches: dict, tokens: torch.Tensor, index: int):
+        return model.decode_step(module, caches, tokens, index, seq_len)
+
+    return serve

@@ -12,14 +12,24 @@ With ``triangular=True`` the walk takes only the KV chunks a Q chunk can
 see.  `scaled_dot_product_attention` does not stand in for this: the
 port follows the reference's arithmetic, chunk by chunk.
 
-The single-token decode functions belong to the serving slice.
+Decode attends one token against a KV cache in either layout: ``bskd``
+([B, S_cache, KV, D]) or head-major ``bksd`` ([B, KV, S_cache, D]), whose
+(B, KV) leading dims are the einsum's batch dims.  The cache writes go in
+place; the reference donates its caches, so both give the same values.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["NEG", "chunked_causal_attention"]
+__all__ = [
+    "NEG",
+    "chunked_causal_attention",
+    "decode_attention",
+    "decode_attention_bksd",
+    "update_kv_cache",
+    "update_kv_cache_bksd",
+]
 
 NEG = -1e30
 
@@ -137,3 +147,67 @@ def chunked_causal_attention(
         else:
             outs.append(q_block(iq, qs[:, iq]))
     return torch.cat(outs, dim=1)
+
+
+def _decode_softmax_pv(qg, k_cache, v_cache, length: int, scale: float,
+                       cast_f32: bool, scores: str, pv: str) -> torch.Tensor:
+    """Scores in f32 (a bf16 product is exact in f32, so cast_f32=False
+    gives the same product), positions at or past `length` masked to
+    `NEG`, softmax, then the PV product; cast_f32=False rounds the
+    probabilities to the cache dtype first, as the reference does."""
+    s = torch.einsum(scores, qg.float(), k_cache.float()) * scale
+    pos = torch.arange(s.shape[-1], device=s.device)
+    s = torch.where(pos < length, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    if not cast_f32:
+        p = p.to(v_cache.dtype).float()
+    return torch.einsum(pv, p, v_cache.float())                # [B,KV,G,1,D]
+
+
+def decode_attention_bksd(
+    q: torch.Tensor,          # [B, 1, H, D]
+    k_cache: torch.Tensor,    # [B, KV, S_cache, D]  (head-major layout)
+    v_cache: torch.Tensor,
+    length: int,
+    cast_f32: bool = True,
+) -> torch.Tensor:
+    """Head-major-cache decode attention: the cache's (B, KV) leading dims
+    are exactly the einsum batch dims."""
+    b, n_kv, _, d = k_cache.shape
+    h = q.shape[2]
+    out = _decode_softmax_pv(
+        _group_q(q, n_kv), k_cache, v_cache, length, 1.0 / (d**0.5), cast_f32,
+        "bqkgd,bksd->bkgqs", "bkgqs,bksd->bkgqd",
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
+
+
+def update_kv_cache_bksd(k_cache, v_cache, k_new, v_new, index: int):
+    """k_new/v_new: [B, 1, KV, D] -> written at [:, :, index, :] in place."""
+    k_cache[:, :, index] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, :, index] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def decode_attention(
+    q: torch.Tensor,          # [B, 1, H, D]
+    k_cache: torch.Tensor,    # [B, S_cache, KV, D]
+    v_cache: torch.Tensor,
+    length: int,              # current valid cache length (incl. new token)
+    cast_f32: bool = True,
+) -> torch.Tensor:
+    """Single-token attention against a (possibly partially filled) cache."""
+    b, _, n_kv, d = k_cache.shape
+    h = q.shape[2]
+    out = _decode_softmax_pv(
+        _group_q(q, n_kv), k_cache, v_cache, length, 1.0 / (d**0.5), cast_f32,
+        "bqkgd,bskd->bkgqs", "bkgqs,bskd->bkgqd",
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, index: int):
+    """k_new/v_new: [B, 1, KV, D] -> written at [:, index] in place."""
+    k_cache[:, index] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, index] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache

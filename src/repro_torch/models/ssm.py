@@ -1,0 +1,175 @@
+"""Mamba-2 SSD mixer (state-space duality, arXiv:2405.21060).
+
+Chunked SSD: the sequence is split into chunks of Q tokens; within a
+chunk the output is the quadratic ("attention-like") masked form, across
+chunks a loop carries the [B, H, P, N] state.  Eager PyTorch has no
+scan, so the reference's scan over chunks and its unrolled form are one
+Python loop here.
+
+Decode is the recurrent form: h <- h * exp(dt*A) + dt * (B outer x); one
+token costs O(H*P*N) and the cache is (conv tail, state), both f32,
+independent of context length.
+
+`A_log`, `D` and `dt_bias` are f32 whatever the model's parameter dtype,
+as in the reference.  `jax.nn.softplus` is ``logaddexp(x, 0)`` at every x;
+`torch.nn.functional.softplus` returns x itself past its threshold, so
+the port takes `torch.logaddexp`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import dense_init
+
+__all__ = ["SSM", "apply_ssm", "decode_ssm", "init_ssm_cache"]
+
+
+def _dims(cfg):
+    d_inner = cfg.ssm_d_inner
+    n_heads = cfg.ssm_n_heads
+    p = cfg.ssm_head_dim
+    n = cfg.ssm_state
+    conv_dim = d_inner + 2 * n  # x, B, C pass through the conv (ngroups=1)
+    return d_inner, n_heads, p, n, conv_dim
+
+
+class SSM(nn.Module):
+    """The mixer's parameters, named as the reference's `init_ssm` tree."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d_inner, h, p, n, conv_dim = _dims(cfg)
+        d = cfg.d_model
+        in_dim = 2 * d_inner + 2 * n + h  # z, x, B, C, dt
+        f32 = torch.float32
+        param = nn.Parameter
+        self.in_proj = param(dense_init(generator, (d, in_dim), dtype, device))
+        self.conv_w = param(dense_init(
+            generator, (cfg.ssm_conv_width, conv_dim), dtype, device, scale=0.5))
+        self.conv_b = param(torch.zeros(conv_dim, dtype=dtype, device=device))
+        self.A_log = param(torch.zeros(h, dtype=f32, device=device))
+        self.D = param(torch.ones(h, dtype=f32, device=device))
+        self.dt_bias = param(torch.zeros(h, dtype=f32, device=device))
+        self.out_proj = param(dense_init(generator, (d_inner, d), dtype, device))
+        self.gate_norm_scale = param(torch.ones(d_inner, dtype=dtype, device=device))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _split_proj(cfg, zxbcdt):
+    d_inner, h, p, n, _ = _dims(cfg)
+    return torch.split(zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
+
+
+def _gated_norm(p, y, z):
+    yf = y.float() * F.silu(z.float())
+    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+    return yf * p.gate_norm_scale.float()
+
+
+def _causal_conv(x, w, b):
+    """x: [B, S, C]; w: [W, C] depthwise causal conv."""
+    width = w.shape[0]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = xp[:, 0:x.shape[1], :] * w[0][None, None, :]
+    for i in range(1, width):
+        out = out + xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+    return out + b[None, None, :]
+
+
+def apply_ssm(p: SSM, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence SSD. x: [B, S, D] -> [B, S, D]."""
+    b, s, d = x.shape
+    d_inner, h, hp, n, conv_dim = _dims(cfg)
+    q = min(cfg.ssm_chunk, s)
+    assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
+    nc = s // q
+
+    zxbcdt = x @ p.in_proj
+    z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xc, b_, c_], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b).float())
+    xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
+
+    a = -torch.exp(p.A_log)                                         # [H]
+    dt = _softplus(dt.float() + p.dt_bias)                          # [B,S,H]
+    xh = xc.reshape(b, s, h, hp)                                    # [B,S,H,P]
+    # chunked views
+    dtc = dt.reshape(b, nc, q, h)
+    xcq = (xh * dt[..., None]).reshape(b, nc, q, h, hp)             # dt-weighted input
+    bq = b_.reshape(b, nc, q, n)
+    cq = c_.reshape(b, nc, q, n)
+    da = dtc * a[None, None, None, :]                               # [B,NC,Q,H]
+    da_cum = torch.cumsum(da, dim=2)                                # within-chunk
+    da_total = da_cum[:, :, -1, :]                                  # [B,NC,H]
+
+    # ---- intra-chunk (quadratic within chunk) -----------------------------
+    # L[i,j] = exp(da_cum[i] - da_cum[j]) for j <= i else 0
+    seg = da_cum[:, :, :, None, :] - da_cum[:, :, None, :, :]       # [B,NC,Q,Q,H]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    l_mat = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", cq, bq)                # [B,NC,Q,Q]
+    y_intra = torch.einsum(
+        "bcij,bcijh,bcjhp->bcihp", scores, l_mat, xcq
+    )                                                               # [B,NC,Q,H,P]
+
+    # ---- chunk states + inter-chunk recurrence -----------------------------
+    decay_to_end = torch.exp(da_total[:, :, None, :] - da_cum)      # [B,NC,Q,H]
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bq, decay_to_end, xcq)
+
+    h_cur = torch.zeros((b, h, hp, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h_cur)
+        h_cur = h_cur * torch.exp(da_total[:, ci])[:, :, None, None] + states[:, ci]
+    h_in = torch.stack(h_in, dim=1)                                 # [B,NC,H,P,N]
+    decay_from_start = torch.exp(da_cum)                            # [B,NC,Q,H]
+    y_inter = torch.einsum("bcin,bcih,bchpn->bcihp", cq, decay_from_start, h_in)
+
+    y = (y_intra + y_inter).reshape(b, s, h, hp)
+    y = y + p.D[None, None, :, None] * xh.float()
+    y = _gated_norm(p, y.reshape(b, s, d_inner), z)
+    return y.to(x.dtype) @ p.out_proj
+
+
+# ---------------------------------------------------------------------------
+# Decode (recurrent form)
+# ---------------------------------------------------------------------------
+
+
+def init_ssm_cache(cfg, batch: int, device) -> dict:
+    d_inner, h, p, n, conv_dim = _dims(cfg)
+    return {
+        "state": torch.zeros((batch, h, p, n), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=torch.float32, device=device),
+    }
+
+
+def decode_ssm(p: SSM, cache: dict, x: torch.Tensor, cfg):
+    """One-token step. x: [B, 1, D] -> (y [B, 1, D], new cache)."""
+    b = x.shape[0]
+    d_inner, h, hp, n, conv_dim = _dims(cfg)
+    zxbcdt = x[:, 0, :] @ p.in_proj
+    z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xc, b_, c_], dim=-1)                       # [B, convdim]
+    window = torch.cat([cache["conv"], conv_in[:, None, :].float()], dim=1)  # [B,W,convdim]
+    w = p.conv_w.float()
+    conv_out = F.silu((window * w[None]).sum(dim=1) + p.conv_b)
+    xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
+
+    a = -torch.exp(p.A_log)
+    dt_ = _softplus(dt.float() + p.dt_bias)                         # [B,H]
+    xh = xc.reshape(b, h, hp)
+    decay = torch.exp(dt_ * a[None, :])                             # [B,H]
+    add = torch.einsum("bh,bn,bhp->bhpn", dt_, b_, xh)
+    state = cache["state"] * decay[:, :, None, None] + add
+    y = torch.einsum("bn,bhpn->bhp", c_, state)
+    y = y + p.D[None, :, None] * xh
+    y = _gated_norm(p, y.reshape(b, d_inner), z)
+    out = y.to(x.dtype) @ p.out_proj
+    return out[:, None, :], {"state": state, "conv": window[:, 1:, :]}

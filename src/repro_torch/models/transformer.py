@@ -1,12 +1,20 @@
-"""Decoder-only LM backbone, dense family: pre-norm GQA attention and a
-(Sw/Ge)GLU or GELU MLP per layer.
+"""Decoder-only LM backbone for the dense / moe / ssm / hybrid / vlm
+families.
+
+Families:
+  dense   pre-norm GQA attention + (Sw/Ge)GLU or GELU MLP
+  moe     attention + top-k expert MLP (`moe.py`)
+  ssm     Mamba-2 SSD mixer only (attention-free, no MLP)
+  hybrid  Hymba-style parallel attention + SSD heads, then MLP
+  vlm     dense backbone consuming [patch embeds ; token embeds]
 
 The reference package stacks its layer weights on a leading [L] axis for
 `lax.scan`; here each layer is a module of its own (`Block`) and the
 forward pass loops over them, with `torch.utils.checkpoint` around each
 layer when ``cfg.remat``.  Parameter names follow the reference tree
-(``layers.<i>.attn.wq``, ``final_norm.scale``, ...), weights [in, out],
-so `params_from_jax` carries its trees across.
+(``layers.<i>.attn.wq``, ``layers.<i>.ssm.A_log``, ``layers.<i>.moe.router``,
+``final_norm.scale``, ...), weights [in, out], so `params_from_jax`
+carries its trees across.
 
 Two reference behaviours that follow from the stacked layout are kept:
 - weight decay falls on leaves of two or more dimensions *in the
@@ -14,8 +22,12 @@ Two reference behaviours that follow from the stacked layout are kept:
   norm scale is a stacked [L, d] leaf: `decay_mask` names that set;
 - `params_from_jax` splits the [L, ...] axis into the layer modules.
 
-The MoE, SSM, hybrid and VLM families and the decode path are not in
-this package yet (`ROADMAP.md` §A).
+Decode (`decode_step_lm`) keeps the reference's cache tree: a dict
+``{"k", "v"[, "ssm_state", "conv"]}`` of stacked [L, ...] tensors, the KV
+caches in the ``bskd`` or ``bksd`` layout.  Each layer's slice is written
+in place and the same dict returned; the reference donates its caches,
+so the values are the same.  ``index`` is a Python int, so the ring
+buffer's write position and the valid length need no device sync.
 """
 from __future__ import annotations
 
@@ -24,7 +36,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import chunked_causal_attention
+from . import moe as moe_lib
+from . import ssm as ssm_lib
+from .attention import (
+    chunked_causal_attention,
+    decode_attention,
+    decode_attention_bksd,
+    update_kv_cache,
+    update_kv_cache_bksd,
+)
 from .layers import (
     apply_mlp,
     apply_norm,
@@ -38,7 +58,10 @@ from .layers import (
 
 __all__ = [
     "TransformerLM",
+    "cache_len_for",
     "decay_mask",
+    "decode_step_lm",
+    "init_decode_caches",
     "lm_loss",
     "params_from_jax",
 ]
@@ -48,6 +71,23 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def _has_attention(cfg) -> bool:
+    return cfg.family != "ssm"
+
+
+def _has_ssm(cfg) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _has_moe(cfg) -> bool:
+    # n_experts == 0 with family "moe" drops the expert blocks entirely
+    return cfg.family == "moe" and cfg.n_experts > 0
+
+
+def _has_mlp(cfg) -> bool:
+    return cfg.d_ff > 0 and cfg.family != "moe"
 
 
 class Norm(nn.Module):
@@ -88,17 +128,32 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: x + attn(norm(x)), then x + mlp(norm(x))."""
+    """One layer of the family: the mixer(s) (attention, SSD or both in
+    parallel), then the expert block or the MLP, each pre-norm and
+    residual."""
 
     def __init__(self, cfg, dtype, device, generator):
         super().__init__()
         self.cfg = cfg
-        self.attn_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
-        self.attn = Attention(cfg, dtype, device, generator)
-        self.mlp_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
-        self.mlp = MLP(cfg, dtype, device, generator)
+        d = cfg.d_model
+        if _has_attention(cfg):
+            self.attn_norm = Norm(d, cfg.norm, dtype, device)
+            self.attn = Attention(cfg, dtype, device, generator)
+        if _has_ssm(cfg):
+            self.ssm_norm = Norm(d, cfg.norm, dtype, device)
+            self.ssm = ssm_lib.SSM(cfg, dtype, device, generator)
+        if cfg.family == "hybrid":
+            # per-path output norms for the parallel-head average
+            self.attn_out_norm = Norm(d, "rms", dtype, device)
+            self.ssm_out_norm = Norm(d, "rms", dtype, device)
+        if _has_moe(cfg):
+            self.moe_norm = Norm(d, cfg.norm, dtype, device)
+            self.moe = moe_lib.MoE(cfg, dtype, device, generator)
+        if _has_mlp(cfg):
+            self.mlp_norm = Norm(d, cfg.norm, dtype, device)
+            self.mlp = MLP(cfg, dtype, device, generator)
 
-    def _attention(self, x, positions, triangular):
+    def _qkv(self, x, positions):
         cfg, a = self.cfg, self.attn
         h = self.attn_norm(x)
         b, s, _ = h.shape
@@ -110,6 +165,12 @@ class Block(nn.Module):
         v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def _attention(self, x, positions, triangular):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions)
         out = chunked_causal_attention(
             q,
             k,
@@ -121,28 +182,95 @@ class Block(nn.Module):
             cast_f32=cfg.attn_cast_f32,
             remat_qblock=cfg.attn_remat,
         )
-        return out.reshape(b, s, cfg.q_dim) @ a.wo
+        return out.reshape(b, s, cfg.q_dim) @ self.attn.wo
+
+    def _attention_decode(self, x_tok, layer_cache, pos, index, cache_len):
+        """x_tok: [B, 1, D] at absolute position `index` (`pos` holds it
+        on the device); writes k, v into the layer's cache slices."""
+        cfg = self.cfg
+        b = x_tok.shape[0]
+        # rope at the absolute position, before the write
+        q, k, v = self._qkv(x_tok, pos)
+        write = index % cache_len  # ring buffer for sliding windows
+        length = min(index + 1, cache_len)
+        if cfg.cache_layout == "bksd":
+            kc, vc = update_kv_cache_bksd(layer_cache["k"], layer_cache["v"], k, v, write)
+            out = decode_attention_bksd(q, kc, vc, length, cast_f32=cfg.attn_cast_f32)
+        else:
+            kc, vc = update_kv_cache(layer_cache["k"], layer_cache["v"], k, v, write)
+            out = decode_attention(q, kc, vc, length, cast_f32=cfg.attn_cast_f32)
+        return out.reshape(b, 1, cfg.q_dim) @ self.attn.wo
+
+    def _ssm_decode(self, h, layer_cache):
+        out, new = ssm_lib.decode_ssm(
+            self.ssm, {"state": layer_cache["ssm_state"], "conv": layer_cache["conv"]},
+            h, self.cfg,
+        )
+        layer_cache["ssm_state"].copy_(new["state"])
+        layer_cache["conv"].copy_(new["conv"])
+        return out
+
+    def _mix(self, attn_out, ssm_out):
+        """The hybrid's parallel-head average."""
+        return 0.5 * (self.attn_out_norm(attn_out) + self.ssm_out_norm(ssm_out))
+
+    def _feed_forward(self, x):
+        """The expert block or the MLP: (x, aux), aux None without experts."""
+        aux = None
+        if _has_moe(self.cfg):
+            y, aux = self.moe(self.moe_norm(x))
+            x = x + y
+        if _has_mlp(self.cfg):
+            x = x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act)
+        return x, aux
 
     def forward(self, x, positions, triangular: bool = False):
-        x = x + self._attention(x, positions, triangular)
-        return x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act)
+        """One layer. Returns (x, aux or None)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            attn_out = self._attention(x, positions, triangular)
+            ssm_out = ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg)
+            x = x + self._mix(attn_out, ssm_out)
+        else:
+            if _has_attention(cfg):
+                x = x + self._attention(x, positions, triangular)
+            if _has_ssm(cfg):
+                x = x + ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg)
+        return self._feed_forward(x)
+
+    def decode(self, x_tok, layer_cache, pos, index: int, cache_len: int):
+        """One layer of one decode step; the layer's caches (views into
+        the stacked tensors) are written in place."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            attn_out = self._attention_decode(x_tok, layer_cache, pos, index, cache_len)
+            ssm_out = self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
+            x_tok = x_tok + self._mix(attn_out, ssm_out)
+        else:
+            if _has_attention(cfg):
+                x_tok = x_tok + self._attention_decode(
+                    x_tok, layer_cache, pos, index, cache_len)
+            if _has_ssm(cfg):
+                x_tok = x_tok + self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
+        return self._feed_forward(x_tok)[0]
 
 
 class TransformerLM(nn.Module):
-    """The dense decoder-only LM of `cfg`, its weights on `device`.
+    """The decoder-only LM of `cfg`, its weights on `device`.
 
     Weights are drawn in f32 from `generator` (a CPU generator; seed 0
-    when None) and cast to ``cfg.param_dtype``: one seed gives the same
-    weights on the card and on the CPU.  The embedding doubles as the LM
-    head when ``cfg.tie_embeddings``.
+    when None) and cast to ``cfg.param_dtype``, except the leaves the
+    reference keeps in f32 (the SSM's `A_log`, `D`, `dt_bias` and the MoE
+    router): one seed gives the same weights on the card and on the CPU.
+    The embedding doubles as the LM head when ``cfg.tie_embeddings``.
     """
 
     def __init__(self, cfg, *, device="cuda", generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family == "encdec":
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not in the PyTorch "
-                "port yet (ROADMAP.md §A)"
+                f"{cfg.name}: family 'encdec' is not in the PyTorch port yet "
+                "(ROADMAP.md §A)"
             )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -163,20 +291,40 @@ class TransformerLM(nn.Module):
         self.head = None if cfg.tie_embeddings else nn.Parameter(dense_init(
             generator, (cfg.d_model, cfg.padded_vocab), dtype, device, scale=0.02))
 
-    def forward(self, tokens: torch.Tensor, *, triangular: bool = False) -> torch.Tensor:
-        """tokens: [B, S] -> logits [B, S, Vpad] f32 (the dense family has
-        no auxiliary loss)."""
+    def forward_lm(
+        self,
+        tokens: torch.Tensor,
+        *,
+        frontend_embeds: torch.Tensor | None = None,
+        triangular: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens: [B, S_text] -> (logits [B, S, Vpad] f32, moe aux loss []).
+
+        For vlm, frontend_embeds [B, P, D] are prepended and S = P + S_text.
+        """
         cfg = self.cfg
-        x = embed_tokens(self.embed, tokens, torch_dtype(cfg.compute_dtype))
+        cd = torch_dtype(cfg.compute_dtype)
+        x = embed_tokens(self.embed, tokens, cd)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(cd), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if cfg.remat:
-                x = checkpoint(layer, x, positions, triangular,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(layer, x, positions, triangular,
+                                  use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, positions, triangular)
+                x, a = layer(x, positions, triangular)
+            if a is not None:
+                aux = aux + a
         x = self.final_norm(x)
-        return lm_logits(x, self.embed, self.head, cfg.vocab_size)
+        return lm_logits(x, self.embed, self.head, cfg.vocab_size), aux
+
+    def forward(self, tokens: torch.Tensor, *, frontend_embeds=None,
+                triangular: bool = False) -> torch.Tensor:
+        """tokens: [B, S_text] -> logits [B, S, Vpad] f32."""
+        return self.forward_lm(tokens, frontend_embeds=frontend_embeds,
+                               triangular=triangular)[0]
 
 
 def lm_loss(
@@ -184,10 +332,69 @@ def lm_loss(
     tokens: torch.Tensor,
     labels: torch.Tensor,
     *,
+    frontend_embeds: torch.Tensor | None = None,
+    moe_aux_weight: float = 0.01,
     triangular: bool = False,
 ) -> torch.Tensor:
-    logits = model(tokens, triangular=triangular)
-    return cross_entropy_loss(logits, labels)
+    logits, aux = model.forward_lm(
+        tokens, frontend_embeds=frontend_embeds, triangular=triangular)
+    if frontend_embeds is not None:
+        # labels only cover text positions; patch positions are unsupervised
+        logits = logits[:, frontend_embeds.shape[1]:, :]
+    return cross_entropy_loss(logits, labels) + moe_aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (single-token serve step with per-layer caches)
+# ---------------------------------------------------------------------------
+
+
+def cache_len_for(cfg, seq_len: int) -> int:
+    if cfg.attention == "sliding":
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
+def init_decode_caches(cfg, batch: int, seq_len: int, device) -> dict:
+    """Stacked per-layer caches ([L, ...] leaves): KV caches in the
+    compute dtype, the SSM's state and conv tail in f32."""
+    cd = torch_dtype(cfg.compute_dtype)
+    n = cfg.n_layers
+    caches: dict[str, torch.Tensor] = {}
+    if _has_attention(cfg):
+        c = cache_len_for(cfg, seq_len)
+        if cfg.cache_layout == "bksd":
+            shape = (n, batch, cfg.n_kv_heads, c, cfg.head_dim)
+        else:
+            shape = (n, batch, c, cfg.n_kv_heads, cfg.head_dim)
+        caches["k"] = torch.zeros(shape, dtype=cd, device=device)
+        caches["v"] = torch.zeros(shape, dtype=cd, device=device)
+    if _has_ssm(cfg):
+        one = ssm_lib.init_ssm_cache(cfg, batch, device)
+        caches["ssm_state"] = one["state"][None].repeat(n, 1, 1, 1, 1)
+        caches["conv"] = one["conv"][None].repeat(n, 1, 1, 1)
+    return caches
+
+
+@torch.inference_mode()
+def decode_step_lm(
+    model: TransformerLM,
+    caches: dict,
+    tokens: torch.Tensor,   # [B, 1] current tokens
+    index: int,             # absolute position of this token
+    seq_len: int,
+) -> tuple[torch.Tensor, dict]:
+    """One serve step: (logits [B, 1, Vpad] f32, caches), the caches
+    written in place."""
+    cfg = model.cfg
+    x = embed_tokens(model.embed, tokens, torch_dtype(cfg.compute_dtype))
+    cache_len = cache_len_for(cfg, seq_len)
+    pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+    for i, layer in enumerate(model.layers):
+        layer_cache = {name: c[i] for name, c in caches.items()}
+        x = layer.decode(x, layer_cache, pos, index, cache_len)
+    x = model.final_norm(x)
+    return lm_logits(x, model.embed, model.head, cfg.vocab_size), caches
 
 
 def decay_mask(model: TransformerLM) -> dict[str, bool]:

@@ -24,7 +24,7 @@ from repro_torch.incidents import IncidentEngine  # noqa: E402
 from repro_torch.kernels.frontier import _lib, fused  # noqa: E402
 from repro_torch.kernels.frontier import frontier as kernels  # noqa: E402
 from repro_torch.kernels.frontier import incidents as coactivation  # noqa: E402
-from repro_torch.launch import replay, serve_fleet, train  # noqa: E402
+from repro_torch.launch import replay, serve, serve_fleet, train  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.replay import generate_trace, parse_trace, replay_trace  # noqa: E402
@@ -85,7 +85,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.configs.paper_gpt", "repro_torch.models.layers",
                  "repro_torch.models.attention",
                  "repro_torch.models.transformer",
-                 "repro_torch.models.model_zoo", "repro_torch.optim.adamw",
+                 "repro_torch.models.model_zoo", "repro_torch.models.moe",
+                 "repro_torch.models.ssm", "repro_torch.launch.serve",
+                 "repro_torch.optim.adamw",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
                  "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert name in out["modules"]
@@ -109,6 +111,28 @@ def test_train_driver_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
     )
     assert proc.returncode != 0 and "CUDA" in proc.stderr
     assert '"first_loss"' not in proc.stdout
+
+
+def test_serve_driver_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    """`python -m repro_torch.launch.serve` runs on the card unless asked
+    for the CPU; without one it raises before building anything, as does
+    every family's model."""
+    args = serve.make_argparser().parse_args(["--reduced"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(args)
+    for arch in ("hymba-1.5b", "mamba2-130m", "phi3.5-moe-42b-a6.6b", "internvl2-1b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(get_config(arch).reduced()).init()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--batch", "2", "--prompt-len", "8", "--decode", "8"],
+        capture_output=True, text=True, env=_env(CUDA_VISIBLE_DEVICES=""),
+        cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert '"decoded"' not in proc.stdout
 
 
 def test_service_without_gpu_raises(monkeypatch):
