@@ -131,7 +131,18 @@ package — in these phases, and exits non-zero if any fails:
            at least one decode step drops an assignment at an expert's
            capacity (counted with `moe.dropped`), then card against CPU
            at 1 layer in f32; (f) internvl2-1b at full width and depth,
-           8 x (32 + 32) (the vlm family's decode).
+           8 x (32 + 32) (the vlm family's decode); (g) whisper-base,
+           the encoder-decoder family, at full width and depth (6 + 6
+           layers, d 512, vocab 51,865, bf16), 8 x (128 + 128): the
+           driver runs the encoder over 64 zero frames in its prefill
+           stage and decodes against the cross K/V; its windows labelled
+           and routed; the encoder pass and the cross-cache build timed
+           apart (CUDA events), 32 decode steps profiled as (a)'s; then 2 + 2 layers in f32: 64
+           teacher-forced decode steps over random frames on the card
+           and on the CPU (logits within 1e-4, greedy tokens equal), and
+           the forward logits and the loss (layers checkpointed) of the
+           same batch within 1e-4.  Every family run must label its
+           windows and route them.
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -1427,22 +1438,28 @@ SERVE_ARGS = ["--arch", "paper-gpt-125m", "--batch", "8", "--prompt-len", "128",
 SERVE_PROFILE_STEPS = 32
 #: full-depth serve runs of the other families: (arch, layers or None for
 #: the config's own, batch, prompt, decode); phi3.5-moe's 32 layers need
-#: ~84 GB in bf16, more than one card holds, so it is cut in depth only
+#: ~84 GB in bf16, more than one card holds, so it is cut in depth only;
+#: whisper-base serves the (a) run's shape, its encoder over seq / 4 = 64
+#: frames
 SERVE_FAMILY_RUNS = (
     ("mamba2-130m", None, 8, 32, 32),
     ("hymba-1.5b", None, 4, 16, 16),
     ("phi3.5-moe-42b-a6.6b", 2, 8, 16, 16),
     ("internvl2-1b", None, 8, 32, 32),
+    ("whisper-base", None, 8, 128, 128),
 )
 #: teacher-forced decode on the card against the CPU, f32, TF32 off:
 #: (arch, layers, batch, steps, cache layouts); hymba decodes past its
-#: 1,024-token window
+#: 1,024-token window; whisper-base keeps 2 encoder layers too
 SERVE_CHECKS = (
     ("paper-gpt-125m", 2, 8, 64, ("bskd", "bksd")),
     ("mamba2-130m", 2, 8, 64, ("bskd",)),
     ("hymba-1.5b", 2, 2, 1040, ("bskd",)),
     ("phi3.5-moe-42b-a6.6b", 1, 8, 16, ("bskd",)),
+    ("whisper-base", 2, 8, 64, ("bskd",)),
 )
+#: timed repetitions of the whisper encoder pass and cross-cache build
+ENCODER_REPS = 20
 #: card against CPU (atol and rtol), and the two cache layouts on the card
 SERVE_TOL = 1e-4
 LAYOUT_TOL = 1e-5
@@ -1484,10 +1501,11 @@ def serve_run(torch, serve, argv, cfg=None) -> tuple[dict, dict]:
                      max_memory_allocated=peak, peak_memory_of_run=peak - start)
 
 
-def serve_profile(torch) -> dict:
-    """paper-gpt-125m at full width: after a 128-token prompt, 32 greedy
-    decode steps as the driver takes them (serve step, argmax, a wait on
-    an event after it, the copy to the host) under torch.profiler (device
+def serve_profile(torch, arch: str = "paper-gpt-125m") -> dict:
+    """`arch` at full width and depth (paper-gpt-125m, or whisper-base
+    over zero frames): after a 128-token prompt, 32 greedy decode steps
+    as the driver takes them (serve step, argmax, a wait on an event
+    after it, the copy to the host) under torch.profiler (device
     activity): the card's busy share of their wall."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1497,7 +1515,7 @@ def serve_profile(torch) -> dict:
 
     batch, prompt = 8, 128
     seq = prompt + SERVE_PROFILE_STEPS
-    model = build_model(get_config("paper-gpt-125m"))
+    model = build_model(get_config(arch))
     module = model.init(torch.Generator().manual_seed(0), "cuda")
     step = build_serve_step(model, seq)
     caches = model.init_caches(module, batch, seq)
@@ -1532,18 +1550,22 @@ def serve_profile(torch) -> dict:
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     n = SERVE_PROFILE_STEPS
-    return dict(steps=n, wall_s=wall, device_busy_s=busy_s,
+    return dict(arch=arch, steps=n, wall_s=wall, device_busy_s=busy_s,
                 device_busy_share=busy_s / wall, ms_per_step=wall / n * 1e3,
                 device_busy_ms_per_step=busy_s / n * 1e3,
                 kernel_launches_per_step=sum(r[2] for r in rows) / n,
                 top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]])
 
 
-def teacher_forced(torch, model, module, tokens, seq: int):
+def teacher_forced(torch, model, module, tokens, seq: int, frames=None):
     """Logits [steps, B, Vpad] of `tokens` [steps, B, 1] fed one a step
-    through `model.decode_step` on `module`'s device."""
-    caches = model.init_caches(module, tokens.shape[1], seq)
-    tokens = tokens.to(module.embed.device)
+    through `model.decode_step` on `module`'s device (after an encoder
+    pass over `frames` for the encdec family)."""
+    device = module.embed.device
+    caches = model.init_caches(
+        module, tokens.shape[1], seq,
+        frames=None if frames is None else frames.to(device))
+    tokens = tokens.to(device)
     out = torch.empty((tokens.shape[0], tokens.shape[1], model.cfg.padded_vocab),
                       dtype=torch.float32, device=module.embed.device)
     for i in range(tokens.shape[0]):
@@ -1564,7 +1586,10 @@ def serve_check(torch, arch: str, layers: int, batch: int, steps: int,
     """`arch` at full width cut to `layers`, f32: teacher-forced decode on
     the card and on the CPU from the same weights (seed 0, drawn on the
     CPU) in each cache layout of `layouts`; logits within SERVE_TOL, two
-    layouts on the card within LAYOUT_TOL; greedy agreement printed."""
+    layouts on the card within LAYOUT_TOL; greedy agreement printed.  The
+    encdec family keeps `layers` encoder layers too, decodes over random
+    frames (seed 2), must agree on every greedy token, and holds its
+    forward logits and loss within SERVE_TOL (`encdec_forward_check`)."""
     import copy
     import dataclasses
 
@@ -1573,20 +1598,28 @@ def serve_check(torch, arch: str, layers: int, batch: int, steps: int,
 
     base = dataclasses.replace(get_config(arch), n_layers=layers,
                                param_dtype="float32", compute_dtype="float32")
+    encdec = base.family == "encdec"
+    frames = None
+    if encdec:
+        base = dataclasses.replace(base, n_enc_layers=layers)
+        frames = torch.randn((batch, max(steps // base.enc_seq_divisor, 1), base.d_model),
+                             generator=torch.Generator().manual_seed(2))
     tokens = torch.randint(0, base.vocab_size, (steps, batch, 1),
                            generator=torch.Generator().manual_seed(1))
     out = dict(arch=arch, layers=layers, batch=batch, steps=steps, dtype="float32",
                window=base.window if base.attention == "sliding" else None)
+    if encdec:
+        out.update(enc_layers=layers, frames=list(frames.shape))
     card_logits = {}
     for layout in layouts:
         model = build_model(dataclasses.replace(base, cache_layout=layout))
         cpu = model.init(torch.Generator().manual_seed(0), "cpu")
         card = copy.deepcopy(cpu).cuda()
         t0 = time.perf_counter()
-        got = teacher_forced(torch, model, card, tokens, steps)
+        got = teacher_forced(torch, model, card, tokens, steps, frames)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        want = teacher_forced(torch, model, cpu, tokens, steps)
+        want = teacher_forced(torch, model, cpu, tokens, steps, frames)
         cpu_s = time.perf_counter() - t0
         err, excess = allclose_err(torch, got, want, SERVE_TOL)
         if not (torch.isfinite(got).all() and excess <= 0):
@@ -1595,6 +1628,10 @@ def serve_check(torch, arch: str, layers: int, batch: int, steps: int,
             max_abs_err=err, card_s=card_s, cpu_s=cpu_s,
             greedy_agree=int((got.argmax(-1) == want.argmax(-1)).sum()),
             greedy_total=steps * batch)
+        if encdec:
+            if out[layout]["greedy_agree"] != steps * batch:
+                raise AssertionError(f"{arch}: greedy tokens differ: {out[layout]}")
+            out["forward"] = encdec_forward_check(torch, model, card, cpu, tokens, frames)
         card_logits[layout] = got
         del card, cpu
         torch.cuda.empty_cache()
@@ -1606,11 +1643,73 @@ def serve_check(torch, arch: str, layers: int, batch: int, steps: int,
     return out
 
 
+def encdec_forward_check(torch, model, card, cpu, tokens, frames) -> dict:
+    """The teacher-forced forward logits (no grad) and the loss (grad on,
+    so each layer runs under its checkpoint) of `tokens` [steps, B, 1] as
+    one [B, steps] batch over `frames`, random labels (seed 3), on the
+    card and on the CPU: each within SERVE_TOL."""
+    seq = tokens[:, :, 0].t().contiguous()
+    labels = torch.randint(0, model.cfg.vocab_size, seq.shape,
+                           generator=torch.Generator().manual_seed(3))
+    batch = {"frames": frames, "tokens": seq, "labels": labels}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        got, want = model.forward(card, on_card).cpu(), model.forward(cpu, batch)
+    err, excess = allclose_err(torch, got, want, SERVE_TOL)
+    if not (torch.isfinite(got).all() and excess <= 0):
+        raise AssertionError(f"encdec forward: card logits off the CPU's by {err}")
+    loss_card = float(model.loss(card, on_card).detach())
+    loss_cpu = float(model.loss(cpu, batch).detach())
+    loss_err, loss_excess = allclose_err(
+        torch, torch.tensor([loss_card]), torch.tensor([loss_cpu]), SERVE_TOL)
+    if not (math.isfinite(loss_card) and loss_excess <= 0):
+        raise AssertionError(f"encdec loss: card {loss_card} against CPU {loss_cpu}")
+    return dict(logits_max_abs_err=err, loss_card=loss_card, loss_cpu=loss_cpu,
+                loss_abs_err=loss_err, remat=model.cfg.remat)
+
+
+def encoder_timing(torch, batch: int, seq: int) -> dict:
+    """whisper-base at full width and depth, bf16, seed-0 weights: the
+    encoder pass over the serve run's zero frames, and the whole cross-
+    cache build (`init_caches`: the encoder, each decoder layer's cross
+    K/V and the zeroed self-attention caches), each timed with CUDA
+    events over ENCODER_REPS calls after one warm-up; medians in ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import torch_dtype
+
+    cfg = get_config("whisper-base")
+    model = build_model(cfg)
+    module = model.init(torch.Generator().manual_seed(0), "cuda")
+    frames = torch.zeros((batch, max(seq // cfg.enc_seq_divisor, 1), cfg.d_model),
+                         dtype=torch_dtype(cfg.compute_dtype), device="cuda")
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(ENCODER_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    with torch.inference_mode():
+        encoder_ms = median_ms(lambda: module.encode(frames))
+    caches_ms = median_ms(lambda: model.init_caches(module, batch, seq, frames=frames))
+    return dict(frames=list(frames.shape), encoder_ms=encoder_ms,
+                init_caches_ms=caches_ms, reps=ENCODER_REPS)
+
+
 def serve_phase(torch, smi: str) -> None:
     """The model serve driver and the decode path on the card: (a)
     paper-gpt-125m at full width and depth, and 32 of its decode steps
-    profiled; (c)–(f) the other families' serve runs; (b)–(e) teacher-
-    forced decode on the card against the CPU."""
+    profiled; (c)–(g) the other families' serve runs (the encoder pass
+    of (g) timed apart); (b)–(g) teacher-forced decode on the card
+    against the CPU (and for (g) the forward and the loss)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1639,7 +1738,14 @@ def serve_phase(torch, smi: str) -> None:
             run, stats = serve_run(torch, serve, [
                 "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
                 "--decode", str(decode), "--window", "16"], cfg=cfg)
+        if not run["last_window_labels"] or not run["last_window_routing"]:
+            raise AssertionError(f"{arch} serve windows: {run}")
         line = dict(card=smi, layers=cfg.n_layers, prompt_len=prompt, **run, **stats)
+        if cfg.family == "encdec":
+            line.update(enc_layers=cfg.n_enc_layers,
+                        **encoder_timing(torch, batch, prompt + decode))
+            print("serve_profile " + json.dumps(dict(card=smi, **serve_profile(torch, arch))),
+                  flush=True)
         if cfg.family == "moe":
             # one call a layer a step: the prompt's steps come first
             drops = [int(d) for d in calls]
@@ -1732,6 +1838,7 @@ def main() -> int:
     parser.add_argument("--keep-going", action="store_true",
                         help="record a failed kernel measurement and go on; "
                              "exit non-zero at the end if any failed")
+    started = time.perf_counter()
     if parser.parse_args().keep_going:
         CASE_ERRORS = (RuntimeError, AssertionError)
     if not torch.cuda.is_available():
@@ -1802,6 +1909,7 @@ def main() -> int:
         fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
     case_rows = {name: [r["four_dispatch"][name] for r in rows]
                  for name in FOUR_DISPATCH}
+    print(f"elapsed {time.perf_counter() - started:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         # the service's own DDP group shape; the fabric run's first group

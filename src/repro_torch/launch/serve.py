@@ -28,6 +28,7 @@ import torch
 from ..configs import get_config
 from ..core.contract import StageSchema
 from ..models import build_model
+from ..models.transformer import torch_dtype
 from ..telemetry.collector import Monitor
 from .steps import build_serve_step
 
@@ -96,7 +97,14 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
         with monitor.stage("request.wait"):
             pass  # synthetic batched request already materialized
         with monitor.stage("prefill.cpu_wall"):
-            caches = model.init_caches(module, args.batch, seq_len)
+            frames = None
+            if cfg.family == "encdec":
+                # the stub audio frontend's frames: zeros, as the
+                # reference's driver; the encoder pass is charged here
+                frames = torch.zeros(
+                    (args.batch, max(seq_len // cfg.enc_seq_divisor, 1), cfg.d_model),
+                    dtype=torch_dtype(cfg.compute_dtype), device=device)
+            caches = model.init_caches(module, args.batch, seq_len, frames=frames)
             # feed the prompt token-by-token (cache warmup)
             for i in range(args.prompt_len):
                 logits, caches = serve_step(module, caches, prompts[:, i:i + 1], i)

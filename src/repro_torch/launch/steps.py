@@ -14,9 +14,10 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch import nn
 
 from ..models.model_zoo import Model
-from ..models.transformer import TransformerLM, decay_mask
+from ..models.transformer import decay_mask
 from ..optim.adamw import AdamWConfig, OptState, apply_updates, init_opt
 
 __all__ = [
@@ -33,7 +34,7 @@ class TrainState:
     """The model (its parameters are updated in place), the optimizer
     state and the step count (an int32 tensor on the device)."""
 
-    params: TransformerLM
+    params: nn.Module
     opt: OptState
     step: torch.Tensor
 
@@ -118,7 +119,7 @@ def build_prefill_step(model: Model, *, triangular: bool = False):
     """``prefill(module, batch) -> logits`` (the full-sequence forward)."""
 
     @torch.inference_mode()
-    def prefill(module: TransformerLM, batch: dict):
+    def prefill(module: nn.Module, batch: dict):
         return model.forward(module, batch, triangular=triangular)
 
     return prefill
@@ -129,7 +130,7 @@ def build_serve_step(model: Model, seq_len: int):
     decode token at the absolute position `index` (a Python int); the
     caches are written in place."""
 
-    def serve(module: TransformerLM, caches: dict, tokens: torch.Tensor, index: int):
+    def serve(module: nn.Module, caches: dict, tokens: torch.Tensor, index: int):
         return model.decode_step(module, caches, tokens, index, seq_len)
 
     return serve

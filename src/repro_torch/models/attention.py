@@ -1,5 +1,6 @@
 """Attention: chunked online-softmax causal attention (optionally a
-sliding window), in the reference's chunk order.
+sliding window), in the reference's chunk order, and the un-chunked
+bidirectional attention of the encoder and the cross-attention.
 
 GQA is computed *grouped* (no repeat of K/V): queries are reshaped to
 [B, S, KV, G, D] and contracted against the un-expanded KV.
@@ -27,6 +28,7 @@ __all__ = [
     "chunked_causal_attention",
     "decode_attention",
     "decode_attention_bksd",
+    "full_cross_attention",
     "update_kv_cache",
     "update_kv_cache_bksd",
 ]
@@ -147,6 +149,23 @@ def chunked_causal_attention(
         else:
             outs.append(q_block(iq, qs[:, iq]))
     return torch.cat(outs, dim=1)
+
+
+def full_cross_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """Bidirectional (encoder / cross) attention, grouped GQA, no mask:
+    q [B, Sq, H, D] against k, v [B, Skv, KV, D].  Scores, softmax and
+    the PV product are f32 whatever the operands' dtype (the reference
+    upcasts q, k and v and has no `cast_f32` switch here); the output
+    takes q's dtype."""
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    scale = 1.0 / (d**0.5)
+    s = torch.einsum("bqkgd,bskd->bkgqs", _group_q(q, n_kv).float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
 def _decode_softmax_pv(qg, k_cache, v_cache, length: int, scale: float,

@@ -1,0 +1,228 @@
+"""Whisper-style encoder-decoder backbone (transformer only).
+
+The audio conv frontend is a stub, as in the reference package: frames
+arrive as [B, T_enc, D] embeddings (T_enc = seq / ``enc_seq_divisor``)
+and the encoder consumes them directly.  Positions are sinusoidal on
+both sides.  The family has no RoPE and no qkv bias (its projections are
+plain products), its attention is f32 whatever ``attn_cast_f32`` says,
+and the embedding is always the LM head.
+
+Parameter names follow the reference tree, weights [in, out]:
+``embed``; ``enc_layers.<i>.{attn_norm, attn.{wq,wk,wv,wo}, mlp_norm,
+mlp.*}``; ``dec_layers.<i>`` with the same plus ``cross_norm`` and
+``cross.{wq,wk,wv,wo}``; ``enc_final_norm``; ``dec_final_norm``.  So
+`transformer.params_from_jax` carries the reference's trees across.
+
+Decode keeps the reference's cache tree ``{"k", "v", "cross_k",
+"cross_v"}`` of stacked [L, B, S, KV, D] tensors, always in the ``bskd``
+layout (the reference ignores ``cache_layout`` for this family).  The
+self-attention caches are written in place; the cross K/V are computed
+once, from the encoder pass, by `init_encdec_caches`, and only read.
+
+Two behaviours of the reference are kept (`ROADMAP.md` §C):
+- each decode step adds the sinusoid of position 0, whatever its index,
+  so decode logits part from the teacher-forced forward after position 0;
+- a batch must carry ``frames``, which the synthetic token pipeline does
+  not make, so the train driver fails on this family (``KeyError``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from .attention import (
+    chunked_causal_attention,
+    decode_attention,
+    full_cross_attention,
+    update_kv_cache,
+)
+from .layers import apply_mlp, cross_entropy_loss, dense_init, embed_tokens, lm_logits
+from .transformer import MLP, Attention, Norm, check_device, torch_dtype
+
+__all__ = [
+    "EncDecLM",
+    "decode_step_encdec",
+    "encdec_loss",
+    "init_encdec_caches",
+    "sinusoidal_positions",
+]
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """[seq, d] f32: sin then cos (concatenated, not interleaved) of
+    pos / 10000 ** (2 i / d)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, heads, head_dim)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-norm bidirectional self-attention, then the MLP."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.mlp_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.mlp = MLP(cfg, dtype, device, generator)
+
+    def _qkv(self, x):
+        cfg, a = self.cfg, self.attn
+        h = self.attn_norm(x)
+        return (_split_heads(h @ a.wq, cfg.n_heads, cfg.head_dim),
+                _split_heads(h @ a.wk, cfg.n_kv_heads, cfg.head_dim),
+                _split_heads(h @ a.wv, cfg.n_kv_heads, cfg.head_dim))
+
+    def _mlp(self, x):
+        """x plus its MLP."""
+        return x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        out = full_cross_attention(*self._qkv(x))
+        return self._mlp(x + out.reshape(b, t, self.cfg.q_dim) @ self.attn.wo)
+
+
+class DecoderLayer(EncoderLayer):
+    """Causal self-attention, cross-attention over the encoder states,
+    then the MLP, each pre-norm and residual."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__(cfg, dtype, device, generator)
+        self.cross_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.cross = Attention(cfg, dtype, device, generator)
+
+    def cross_kv(self, enc_out):
+        """The encoder states' keys and values, [B, T_enc, KV, D] each."""
+        cfg = self.cfg
+        return (_split_heads(enc_out @ self.cross.wk, cfg.n_kv_heads, cfg.head_dim),
+                _split_heads(enc_out @ self.cross.wv, cfg.n_kv_heads, cfg.head_dim))
+
+    def _cross(self, x, ek, ev):
+        """x plus its cross-attention over the keys ek and values ev."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = _split_heads(self.cross_norm(x) @ self.cross.wq, cfg.n_heads, cfg.head_dim)
+        return x + full_cross_attention(q, ek, ev).reshape(b, s, cfg.q_dim) @ self.cross.wo
+
+    def forward(self, x, enc_out, triangular: bool = False):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        attn = chunked_causal_attention(
+            *self._qkv(x), q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+            triangular=triangular,
+        )
+        x = x + attn.reshape(b, s, cfg.q_dim) @ self.attn.wo
+        return self._mlp(self._cross(x, *self.cross_kv(enc_out)))
+
+    def decode(self, x_tok, layer_cache, index: int):
+        """One token at position `index`: its k, v written into the
+        layer's cache slices in place, attention over ``index + 1``
+        positions, then cross-attention over the stored cross K/V."""
+        cfg = self.cfg
+        b = x_tok.shape[0]
+        q, k, v = self._qkv(x_tok)
+        kc, vc = update_kv_cache(layer_cache["k"], layer_cache["v"], k, v, index)
+        out = decode_attention(q, kc, vc, index + 1)
+        x = x_tok + out.reshape(b, 1, cfg.q_dim) @ self.attn.wo
+        return self._mlp(self._cross(x, layer_cache["cross_k"], layer_cache["cross_v"]))
+
+
+class EncDecLM(nn.Module):
+    """The encoder-decoder model of `cfg`, its weights on `device`.
+
+    Weights are drawn in f32 from `generator` (a CPU generator; seed 0
+    when None) and cast to ``cfg.param_dtype``, so one seed gives the
+    same weights on the card and on the CPU.  Each layer runs under
+    `torch.utils.checkpoint` when ``cfg.remat`` and gradients are on.
+    """
+
+    def __init__(self, cfg, *, device="cuda", generator: torch.Generator | None = None):
+        super().__init__()
+        device = check_device(type(self).__name__, device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.param_dtype)
+        self.embed = nn.Parameter(dense_init(
+            generator, (cfg.padded_vocab, cfg.d_model), dtype, device, scale=0.02))
+        self.enc_layers = nn.ModuleList(
+            EncoderLayer(cfg, dtype, device, generator) for _ in range(cfg.n_enc_layers))
+        self.dec_layers = nn.ModuleList(
+            DecoderLayer(cfg, dtype, device, generator) for _ in range(cfg.n_layers))
+        self.enc_final_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.dec_final_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+
+    def _layer(self, layer, *args):
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+        return layer(*args)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, T_enc, D] (stub embeddings) -> encoder states."""
+        cd = torch_dtype(self.cfg.compute_dtype)
+        _, t, d = frames.shape
+        x = frames.to(cd) + sinusoidal_positions(t, d, frames.device).to(cd)[None]
+        for layer in self.enc_layers:
+            x = self._layer(layer, x)
+        return self.enc_final_norm(x)
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
+                triangular: bool = False) -> torch.Tensor:
+        """Teacher-forced decoder logits [B, S, Vpad] (f32)."""
+        cfg = self.cfg
+        cd = torch_dtype(cfg.compute_dtype)
+        enc_out = self.encode(frames)
+        x = embed_tokens(self.embed, tokens, cd)
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device).to(cd)[None]
+        for layer in self.dec_layers:
+            x = self._layer(layer, x, enc_out, triangular)
+        x = self.dec_final_norm(x)
+        return lm_logits(x, self.embed, None, cfg.vocab_size)
+
+
+def encdec_loss(model: EncDecLM, frames, tokens, labels, *, triangular=False):
+    return cross_entropy_loss(model(frames, tokens, triangular=triangular), labels)
+
+
+@torch.no_grad()
+def init_encdec_caches(model: EncDecLM, frames: torch.Tensor, seq_len: int) -> dict:
+    """Zeroed self-attention caches [L, B, seq_len, KV, D] in the compute
+    dtype, and each decoder layer's cross K/V of one encoder pass over
+    `frames`, stacked [L, B, T_enc, KV, D]."""
+    cfg = model.cfg
+    enc_out = model.encode(frames)
+    pairs = [layer.cross_kv(enc_out) for layer in model.dec_layers]
+    shape = (cfg.n_layers, frames.shape[0], seq_len, cfg.n_kv_heads, cfg.head_dim)
+    cd = torch_dtype(cfg.compute_dtype)
+    return {
+        "k": torch.zeros(shape, dtype=cd, device=enc_out.device),
+        "v": torch.zeros(shape, dtype=cd, device=enc_out.device),
+        "cross_k": torch.stack([k for k, _ in pairs]),
+        "cross_v": torch.stack([v for _, v in pairs]),
+    }
+
+
+@torch.inference_mode()
+def decode_step_encdec(model: EncDecLM, caches: dict, tokens: torch.Tensor,
+                       index: int) -> tuple[torch.Tensor, dict]:
+    """One serve step of tokens [B, 1] at position `index` (a Python
+    int): (logits [B, 1, Vpad] f32, caches), the self-attention caches
+    written in place.  Adds the sinusoid of position 0 at every index,
+    as the reference does."""
+    cfg = model.cfg
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(model.embed, tokens, cd)
+    x = x + sinusoidal_positions(1, cfg.d_model, x.device).to(cd)[None]
+    for i, layer in enumerate(model.dec_layers):
+        x = layer.decode(x, {name: c[i] for name, c in caches.items()}, index)
+    x = model.dec_final_norm(x)
+    return lm_logits(x, model.embed, None, cfg.vocab_size), caches

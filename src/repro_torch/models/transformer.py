@@ -59,6 +59,7 @@ from .layers import (
 __all__ = [
     "TransformerLM",
     "cache_len_for",
+    "check_device",
     "decay_mask",
     "decode_step_lm",
     "init_decode_caches",
@@ -88,6 +89,18 @@ def _has_moe(cfg) -> bool:
 
 def _has_mlp(cfg) -> bool:
     return cfg.d_ff > 0 and cfg.family != "moe"
+
+
+def check_device(owner: str, device) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and no card
+    is there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device={str(device)!r}): no CUDA device is "
+            "available (pass device='cpu' to run on the CPU)"
+        )
+    return device
 
 
 class Norm(nn.Module):
@@ -268,16 +281,11 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg, *, device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if cfg.family == "encdec":
-            raise NotImplementedError(
-                f"{cfg.name}: family 'encdec' is not in the PyTorch port yet "
-                "(ROADMAP.md §A)"
+            raise ValueError(
+                f"{cfg.name}: family 'encdec' is built by EncDecLM "
+                "(models/encdec.py), not TransformerLM"
             )
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"TransformerLM(device={str(device)!r}): no CUDA device is "
-                "available (pass device='cpu' to run on the CPU)"
-            )
+        device = check_device(type(self).__name__, device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
@@ -397,13 +405,18 @@ def decode_step_lm(
     return lm_logits(x, model.embed, model.head, cfg.vocab_size), caches
 
 
-def decay_mask(model: TransformerLM) -> dict[str, bool]:
+#: the per-layer stacks of the reference's trees: ``layers`` of the
+#: decoder-only families, ``enc_layers`` and ``dec_layers`` of encdec
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def decay_mask(model: nn.Module) -> dict[str, bool]:
     """Parameter name -> whether AdamW decays it: leaves of two or more
     dimensions in the reference's tree, where ``scan_layers`` stacks each
-    per-layer leaf on an [L] axis (so only `final_norm` escapes there)."""
+    per-layer leaf on an [L] axis (so only the final norms escape there)."""
     stacked = model.cfg.scan_layers
     return {
-        name: p.dim() + int(stacked and name.startswith("layers.")) >= 2
+        name: p.dim() + int(stacked and name.split(".")[0] in LAYER_STACKS) >= 2
         for name, p in model.named_parameters()
     }
 
@@ -416,11 +429,12 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, cfg) -> dict[str, torch.Tensor]:
-    """The reference's `init_lm` tree (leaves as numpy arrays) as a state
-    dict of `TransformerLM(cfg)`.  Under ``scan_layers`` each per-layer
-    leaf is split off its leading [L] axis; a tied embedding stays one
-    parameter (the tree has no ``head``).  Load it with
-    ``model.load_state_dict``."""
+    """The reference's `init_lm` or `init_encdec` tree (leaves as numpy
+    arrays) as a state dict of `TransformerLM(cfg)` or `EncDecLM(cfg)`.
+    Each layer stack (`LAYER_STACKS`) is split into its layers: off the
+    leading [L] axis of every leaf under ``scan_layers``, else from the
+    list; a tied embedding stays one parameter (the tree has no
+    ``head``).  Load it with ``model.load_state_dict``."""
     out: dict[str, torch.Tensor] = {}
 
     def put(prefix: str, node) -> None:
@@ -430,17 +444,14 @@ def params_from_jax(tree: dict, cfg) -> dict[str, torch.Tensor]:
         else:
             out[prefix] = _to_tensor(node)
 
-    put("embed", tree["embed"])
-    layers = tree["layers"]
-    for i in range(cfg.n_layers):
-        if cfg.scan_layers:
-            layer = _index_tree(layers, i)
-        else:
-            layer = layers[i]
-        put(f"layers.{i}", layer)
-    put("final_norm", tree["final_norm"])
-    if "head" in tree:
-        put("head", tree["head"])
+    counts = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
+              "enc_layers": cfg.n_enc_layers}
+    for key, node in tree.items():
+        if key not in LAYER_STACKS:
+            put(key, node)
+            continue
+        for i in range(counts[key]):
+            put(f"{key}.{i}", _index_tree(node, i) if cfg.scan_layers else node[i])
     return out
 
 

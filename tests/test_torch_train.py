@@ -207,15 +207,20 @@ def test_attention_bf16_operands(cast_f32):
 
 
 def test_other_families_raise():
-    """`encdec` alone still raises, naming ROADMAP.md; every other family
-    builds (reduced, on the CPU)."""
+    """No family raises any more: every family of ARCHITECTURES, encdec
+    included, builds reduced on the CPU with its config's layer counts
+    (encdec: its encoder and decoder stacks)."""
+    families = set()
     for name, cfg in ARCHITECTURES.items():
+        reduced = cfg.reduced()
+        module = build_model(reduced).init(device="cpu")
+        families.add(cfg.family)
         if cfg.family == "encdec":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_model(cfg)
+            assert len(module.enc_layers) == reduced.n_enc_layers == 2, name
+            assert len(module.dec_layers) == reduced.n_layers == 2, name
         else:
-            module = build_model(cfg.reduced()).init(device="cpu")
-            assert len(module.layers) == cfg.reduced().n_layers, name
+            assert len(module.layers) == reduced.n_layers, name
+    assert families == {"dense", "moe", "ssm", "hybrid", "vlm", "encdec"}
 
 
 def test_decay_mask_is_the_reference_rule_on_its_tree():
