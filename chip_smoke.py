@@ -142,7 +142,25 @@ package — in these phases, and exits non-zero if any fails:
            and on the CPU (logits within 1e-4, greedy tokens equal), and
            the forward logits and the loss (layers checkpointed) of the
            same batch within 1e-4.  Every family run must label its
-           windows and route them.
+           windows and route them;
+  examples the five examples of the port (`repro_torch.examples`:
+           hidden_rank_demo, whatif_demo, fleet_monitor, serve_demo and
+           quickstart, the last at 60 steps with its checkpoints under
+           build/) with `--device cuda` and their own asserts, the launch
+           counts reset just before each and read just after:
+           fleet_monitor launches the fused tick and the frontier kernel
+           1 + 4 times, whatif_demo the what-if kernel once; each
+           example's wall and launches printed; the inputs they hand the
+           kernels are held against the plain versions bit for bit in
+           the group phases;
+  mesh     `make_local_mesh()` is one device of the card with no process
+           group; the train step built on it under BASELINE_PLAN and the
+           serve step under DECODE_PLAN (paper-gpt-125m at full width, 2
+           layers, f32: 3 train steps, 32 decode steps) equal the plain
+           steps bit for bit, every parameter, moment and cache
+           included; `compress_grads` on the card equals its CPU result
+           on the same leaves bit for bit.  The train and serve phases
+           above build their steps through the same mesh and plans.
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -1296,6 +1314,8 @@ def card_against_cpu(torch, np) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed.sharding import BASELINE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import build_train_step, init_train_state
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, lr_at
@@ -1313,7 +1333,7 @@ def card_against_cpu(torch, np) -> dict:
     out = {}
     for name, cfg, devices in (("f32", f32, ("cuda", "cpu")), ("bf16", base, ("cuda",))):
         model = build_model(cfg)
-        step = build_train_step(model, opt)
+        step, _ = build_train_step(model, make_local_mesh(), BASELINE_PLAN, opt)
         for dev in devices:
             state = init_train_state(model, torch.Generator().manual_seed(0), dev)
             b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
@@ -1510,6 +1530,8 @@ def serve_profile(torch, arch: str = "paper-gpt-125m") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import DECODE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import build_serve_step
     from repro_torch.models import build_model
 
@@ -1517,7 +1539,7 @@ def serve_profile(torch, arch: str = "paper-gpt-125m") -> dict:
     seq = prompt + SERVE_PROFILE_STEPS
     model = build_model(get_config(arch))
     module = model.init(torch.Generator().manual_seed(0), "cuda")
-    step = build_serve_step(model, seq)
+    step, _ = build_serve_step(model, make_local_mesh(), DECODE_PLAN, seq)
     caches = model.init_caches(module, batch, seq)
     tokens = torch.randint(0, model.cfg.vocab_size, (batch, prompt),
                            generator=torch.Generator().manual_seed(0)).cuda()
@@ -1762,6 +1784,194 @@ def serve_phase(torch, smi: str) -> None:
               flush=True)
 
 
+#: the examples phase: each example's argv after ``--device cuda`` (the
+#: quickstart's 200 steps cut to 60, its checkpoints under build/)
+EXAMPLE_ARGS = {
+    "hidden_rank_demo": [],
+    "whatif_demo": [],
+    "fleet_monitor": [],
+    "serve_demo": [],
+    "quickstart": ["--steps", "60"],
+}
+#: launches each example must make: the what-if kernel once on the demo's
+#: [20, 8, S] window; the fleet frontier kernel 1 + 4 times on the
+#: [4, 10, 256, 6] window (`fleet_frontier_window`, `fleet_frontier_loop`)
+EXAMPLE_LAUNCHES = {
+    "whatif_demo": {"whatif_matrix": 1},
+    "fleet_monitor": {"frontier_window": 5},
+}
+
+
+def examples_phase(torch, fused, kernels, coact, ex_fused, ex_families) -> None:
+    """The five examples of the port (`repro_torch.examples`) on the card,
+    each with its own asserts, the launch counts reset just before each
+    and read just after: `fleet_monitor` must launch the fused tick (its
+    service) and the frontier kernel 1 + 4 times, `whatif_demo` the
+    what-if kernel once.  The inputs they hand the fused tick go into
+    `ex_fused`, those they hand the single-family kernels into
+    `ex_families`: the group phases hold each against its plain version."""
+    import shutil
+    from importlib import import_module
+
+    ckpt = os.path.join(ROOT, "build", f"quickstart_{os.getpid()}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for name, extra in EXAMPLE_ARGS.items():
+        module = import_module(f"repro_torch.examples.{name}")
+        argv = ["--device", "cuda", *extra]
+        if name == "quickstart":
+            argv += ["--ckpt-dir", ckpt]
+        reset_launches(fused, kernels, coact)
+        t0 = time.perf_counter()
+        with recording_fused(fused, ex_fused), recording_families(kernels, ex_families):
+            out = module.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(fused, kernels, coact)
+        for kernel, n in EXAMPLE_LAUNCHES.get(name, {}).items():
+            if launches[kernel] != n:
+                raise AssertionError(f"{name}: {kernel} launched {launches[kernel]}, not {n}")
+        if name == "fleet_monitor" and launches["fused_tick"] <= 0:
+            raise AssertionError(f"fleet_monitor: the fused tick never launched: {launches}")
+        if "OK" not in out["lines"][-1]:
+            raise AssertionError(f"{name} ended in {out['lines'][-1]!r}")
+        line = dict(wall_s=wall, launches=launches, last_line=out["lines"][-1])
+        if name == "quickstart":
+            s = out["summary"]
+            line.update(steps=s["steps"], first_loss=s["first_loss"],
+                        last_loss=s["last_loss"], monitor_overhead=s["monitor_overhead"])
+        if name == "serve_demo":
+            line.update(decoded=out["result"]["decoded"],
+                        tokens_per_second=out["result"]["tokens_per_second"])
+        print(f"example {name} " + json.dumps(line), flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+#: the mesh phase: paper-gpt-125m at full width cut to this many layers,
+#: f32, a batch of this shape, this many train and decode steps
+MESH_LAYERS = 2
+MESH_BATCH = (4, 256)
+MESH_TRAIN_STEPS = 3
+MESH_DECODE = (8, 16, 16)  # batch, prompt, decoded
+
+
+def _plain_train_step(torch, model, opt):
+    """The one-device train step written out (loss, autograd, AdamW): the
+    plain version the mesh's step is held against."""
+    from repro_torch.models.transformer import decay_mask
+    from repro_torch.optim.adamw import apply_updates
+
+    def step(state, batch):
+        params = dict(state.params.named_parameters())
+        loss = model.loss(state.params, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _, opt_state, om = apply_updates(opt, params, dict(zip(params, grads)),
+                                         state.opt, decay_mask(state.params))
+        state.opt, state.step = opt_state, state.step + 1
+        return state, {"loss": loss.detach(), **om}
+
+    return step
+
+
+def mesh_phase(torch, np) -> dict:
+    """The mesh on the card: `make_local_mesh()` is one device of cuda:0
+    with no process group; the train step built on it under BASELINE_PLAN
+    and the serve step under DECODE_PLAN (paper-gpt-125m at full width, 2
+    layers, f32) equal the plain steps bit for bit (loss, grad norm, every
+    parameter and moment after each step; every decode step's logits and
+    the caches); `compress_grads` on the card equals its CPU result on the
+    same leaves bit for bit over three steps."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed import compress_grads, init_ef
+    from repro_torch.distributed.sharding import BASELINE_PLAN, DECODE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (
+        build_serve_step,
+        build_train_step,
+        init_train_state,
+        shard_train_state,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    mesh = make_local_mesh()
+    if (mesh.size() != 1 or mesh.device_type != "cuda" or tuple(mesh.shape) != (1, 1)
+            or dist.is_initialized()):
+        raise AssertionError(f"make_local_mesh() gave {mesh} (group {dist.is_initialized()})")
+    batch, seq = MESH_BATCH
+    cfg = dataclasses.replace(
+        get_config("paper-gpt-125m"), n_layers=MESH_LAYERS, param_dtype="float32",
+        compute_dtype="float32", attn_q_chunk=seq, attn_kv_chunk=seq)
+    model = build_model(cfg)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1)
+    mesh_step, state_sh = build_train_step(model, mesh, BASELINE_PLAN, opt)
+    runs = {}
+    for label, step in (("mesh", mesh_step), ("plain", _plain_train_step(torch, model, opt))):
+        state = init_train_state(model, torch.Generator().manual_seed(0), "cuda")
+        if label == "mesh":
+            state = shard_train_state(state, state_sh)
+        losses = []
+        for i in range(MESH_TRAIN_STEPS):
+            host = SyntheticTokens(cfg.vocab_size, batch, seq, seed=1).batch_at(i)
+            state, m = step(state, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[label] = (losses, state)
+    (mesh_losses, mesh_state), (plain_losses, plain_state) = runs["mesh"], runs["plain"]
+    if mesh_losses != plain_losses:
+        raise AssertionError(f"mesh train step {mesh_losses} vs plain {plain_losses}")
+    plain_params = dict(plain_state.params.named_parameters())
+    for name, p in mesh_state.params.named_parameters():
+        if not (torch.equal(p, plain_params[name])
+                and torch.equal(mesh_state.opt.mu[name], plain_state.opt.mu[name])
+                and torch.equal(mesh_state.opt.nu[name], plain_state.opt.nu[name])):
+            raise AssertionError(f"mesh train step: {name} differs from the plain step")
+
+    b, prompt, n = MESH_DECODE
+    seq_len = prompt + n
+    serve_step, _ = build_serve_step(model, mesh, DECODE_PLAN, seq_len)
+    module = mesh_state.params
+    tokens = torch.randint(0, cfg.vocab_size, (b, seq_len),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    caches = {"mesh": model.init_caches(module, b, seq_len),
+              "plain": model.init_caches(module, b, seq_len)}
+    for i in range(seq_len):
+        got, caches["mesh"] = serve_step(module, caches["mesh"], tokens[:, i:i + 1], i)
+        want, caches["plain"] = model.decode_step(module, caches["plain"],
+                                                  tokens[:, i:i + 1], i, seq_len)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mesh serve step {i}: logits differ from the plain step")
+    for k in caches["plain"]:
+        if not torch.equal(caches["mesh"][k], caches["plain"][k]):
+            raise AssertionError(f"mesh serve step: cache {k} differs")
+
+    rng = np.random.default_rng(7)
+    leaves = {name: rng.standard_normal(tuple(p.shape)).astype(np.float32)
+              for name, p in list(plain_params.items())[:6]}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        g = {k: torch.from_numpy(v).to(dev) for k, v in leaves.items()}
+        ef = init_ef(g)
+        out = []
+        for i in range(3):
+            deq, ef = compress_grads({k: v * (i + 1) for k, v in g.items()}, ef)
+            out.append({k: (t.cpu(), ef.error[k].cpu()) for k, t in deq.items()})
+        results[dev] = out
+    for step_card, step_cpu in zip(results["cuda"], results["cpu"]):
+        for k, (deq, err) in step_card.items():
+            if not (torch.equal(deq, step_cpu[k][0]) and torch.equal(err, step_cpu[k][1])):
+                raise AssertionError(f"compress_grads on the card: {k} differs from the CPU")
+    return dict(mesh=str(mesh), mesh_shape=list(mesh.shape), layers=MESH_LAYERS,
+                train_steps=MESH_TRAIN_STEPS, losses=mesh_losses,
+                decode_steps=seq_len, compress_leaves=len(leaves),
+                compress_elements=sum(v.size for v in leaves.values()),
+                moments_placements=sorted({str(sh.placements)
+                                           for sh in state_sh.moments.values()}))
+
+
 def profile_phase(torch, serve_fleet, label, argv) -> None:
     """A service run once more under torch.profiler: device busy time by
     kernel, against the service's own tick time (obs)."""
@@ -1905,6 +2115,17 @@ def main() -> int:
     smi = card_name()
     train_phase(torch, np, smi)
     serve_phase(torch, smi)
+    ex_fused, ex_families = {}, {}
+    examples_phase(torch, fused, kernels, coact, ex_fused, ex_families)
+    # the examples' kernel inputs against the plain versions, bit for bit
+    ex_fused_rows = fused_group_phase(torch, fused, "examples", ex_fused, flush)
+    ex_rows = group_phase(torch, kernels, "examples", ex_families, flush)
+    for name in ("frontier_window", "whatif_matrix"):
+        if not ex_rows.get(name):
+            raise AssertionError(f"the examples handed {name} no group")
+    if not ex_fused_rows:
+        raise AssertionError("the examples handed the fused tick no group")
+    print("mesh " + json.dumps(dict(card=smi, **mesh_phase(torch, np))), flush=True)
     if FAILURES:
         fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
     case_rows = {name: [r["four_dispatch"][name] for r in rows]
@@ -1913,15 +2134,15 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         # the service's own DDP group shape; the fabric run's first group
-        kernel_row("fused_tick", launches, rows + fused_rows + shard_fused_rows,
-                   rows[0]),
+        kernel_row("fused_tick", launches,
+                   rows + fused_rows + shard_fused_rows + ex_fused_rows, rows[0]),
         kernel_row("coactivation", coact_launches, coact_rows, coact_rows[0]),
         # the frontier and what-if kernels: the four-dispatch replay's
         # launches, times at its largest group; the regime kernel: the
         # public four-dispatch tick's (the service never asks for regimes)
         *(kernel_row(name, replay_launches[name],
-                     replay_rows[name] + case_rows[name] + shard_rows[name],
-                     largest(replay_rows[name]))
+                     replay_rows[name] + case_rows[name] + shard_rows[name]
+                     + ex_rows[name], largest(replay_rows[name]))
           for name in ("frontier_window", "whatif_matrix")),
         kernel_row("regime_stats", tick_launches["regime_stats"],
                    tick_rows["regime_stats"] + case_rows["regime_stats"]

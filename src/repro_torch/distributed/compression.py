@@ -1,21 +1,63 @@
-"""Wire codecs of the fleet telemetry format (NumPy only).
+"""Int8 gradient compression with error feedback, and the wire codecs
+of the fleet telemetry format.
 
-The symmetric int8 quantizer and the step-axis delta + zigzag-varint
-codec that `telemetry.packets` uses for SFP1/SFP2 window payloads.
-The gradient-compression half of the reference package's module
-(error feedback over parameter trees) belongs to training and is not
-part of this package yet.
+Gradients: per-tensor symmetric int8 quantization with an error-feedback
+accumulator (`init_ef`, `compress_grads`), torch functions on dicts of
+tensors keyed by parameter name.  The quantization residual is carried
+into the next step, so the compressed optimizer converges to the
+uncompressed trajectory (EF-SGD).  No driver calls it; the tests hold it
+against the reference's.
+
+Telemetry: the NumPy symmetric int8 quantizer and the step-axis delta +
+zigzag-varint codec that `telemetry.packets` uses for SFP1/SFP2 window
+payloads.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
 
 __all__ = [
+    "EFState",
+    "init_ef",
+    "compress_grads",
     "quantize_i8",
     "dequantize_i8",
     "delta_varint_encode_i8",
     "delta_varint_decode_i8",
 ]
+
+class EFState(NamedTuple):
+    error: dict[str, torch.Tensor]  # residual per leaf, f32
+
+
+def init_ef(params: dict[str, torch.Tensor]) -> EFState:
+    return EFState(error={
+        n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()
+    })
+
+
+def _quantize_dequantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 round-trip (round half to even, clipped
+    to +-127); returns (dequantized, residual), both f32."""
+    scale = torch.clamp_min(g.abs().max(), 1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    deq = q.to(torch.float32) * scale
+    return deq, g - deq
+
+
+def compress_grads(
+    grads: dict[str, torch.Tensor], ef: EFState
+) -> tuple[dict[str, torch.Tensor], EFState]:
+    """Apply EF-int8 to every gradient leaf: (the compressed gradients to
+    feed the optimizer, the updated error state)."""
+    deq, res = {}, {}
+    for n, g in grads.items():
+        deq[n], res[n] = _quantize_dequantize(g.to(torch.float32) + ef.error[n])
+    return deq, EFState(error=res)
+
 
 # ---------------------------------------------------------------------------
 # Symmetric int8 codec (the fleet telemetry wire format in

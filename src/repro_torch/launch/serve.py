@@ -27,10 +27,12 @@ import torch
 
 from ..configs import get_config
 from ..core.contract import StageSchema
+from ..distributed.sharding import DECODE_PLAN
 from ..models import build_model
 from ..models.transformer import torch_dtype
 from ..telemetry.collector import Monitor
-from .steps import build_serve_step
+from .mesh import make_local_mesh
+from .steps import build_serve_step, shard_params
 
 SERVE_STAGES = (
     "request.wait",
@@ -84,7 +86,10 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
     module = model.init(torch.Generator().manual_seed(0), device)
     if params is not None:
         module.load_state_dict(params)
-    serve_step = build_serve_step(model, seq_len)
+    serve_step, param_sh = build_serve_step(
+        model, make_local_mesh(device=device), DECODE_PLAN, seq_len
+    )
+    module = shard_params(module, param_sh)
     if prompts is None:
         prompts = torch.randint(
             0, cfg.vocab_size, (args.batch, args.prompt_len),

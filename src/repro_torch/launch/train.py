@@ -35,10 +35,12 @@ from ..configs import get_config
 from ..core.contract import fused_schema
 from ..data.pipeline import PrefetchPipeline, SyntheticTokens
 from ..distributed.policy import Action
+from ..distributed.sharding import BASELINE_PLAN
 from ..models import build_model
 from ..optim.adamw import AdamWConfig
 from ..telemetry.collector import Monitor
-from .steps import build_train_step, init_train_state
+from .mesh import make_local_mesh
+from .steps import build_train_step, init_train_state, shard_train_state
 
 
 def make_argparser() -> argparse.ArgumentParser:
@@ -147,8 +149,13 @@ def run(args) -> dict:
 
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(10, args.steps // 20),
                           decay_steps=args.steps)
-    train_step = build_train_step(model, opt_cfg, accum_steps=args.accum)
-    state = init_train_state(model, torch.Generator().manual_seed(0), device)
+    mesh = make_local_mesh(device=device)
+    train_step, state_sh = build_train_step(
+        model, mesh, BASELINE_PLAN, opt_cfg, accum_steps=args.accum
+    )
+    state = shard_train_state(
+        init_train_state(model, torch.Generator().manual_seed(0), device), state_sh
+    )
 
     start = 0
     if args.resume == "auto" and args.ckpt_dir:

@@ -37,12 +37,29 @@ from .attention import (
     full_cross_attention,
     update_kv_cache,
 )
-from .layers import apply_mlp, cross_entropy_loss, dense_init, embed_tokens, lm_logits
-from .transformer import MLP, Attention, Norm, check_device, torch_dtype
+from .layers import (
+    apply_mlp,
+    cross_entropy_loss,
+    dense_init,
+    embed_tokens,
+    lm_logits,
+    mlp_axes,
+    norm_axes,
+)
+from .transformer import (
+    MLP,
+    Attention,
+    Norm,
+    attn_axes,
+    check_device,
+    flat_axes,
+    torch_dtype,
+)
 
 __all__ = [
     "EncDecLM",
     "decode_step_encdec",
+    "encdec_axes",
     "encdec_loss",
     "init_encdec_caches",
     "sinusoidal_positions",
@@ -61,6 +78,26 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 def _split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, heads, head_dim)
+
+
+def encdec_axes(cfg) -> dict[str, tuple]:
+    """Parameter name (as `EncDecLM.named_parameters` gives it) -> logical
+    axes, one per dimension."""
+    enc_layer = {
+        "attn_norm": norm_axes(cfg.norm),
+        "attn": attn_axes(cfg),
+        "mlp_norm": norm_axes(cfg.norm),
+        "mlp": mlp_axes(cfg.act),
+    }
+    dec_layer = dict(enc_layer, cross_norm=norm_axes(cfg.norm), cross=attn_axes(cfg))
+    axes = {"embed": ("vocab", "embed")}
+    for i in range(cfg.n_enc_layers):
+        axes.update(flat_axes(enc_layer, f"enc_layers.{i}."))
+    for i in range(cfg.n_layers):
+        axes.update(flat_axes(dec_layer, f"dec_layers.{i}."))
+    axes.update(flat_axes(norm_axes(cfg.norm), "enc_final_norm."))
+    axes.update(flat_axes(norm_axes(cfg.norm), "dec_final_norm."))
+    return axes
 
 
 class EncoderLayer(nn.Module):

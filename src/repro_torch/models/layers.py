@@ -3,7 +3,10 @@
 Functions on tensors, as in the reference package's `models/layers.py`:
 the modules of `transformer.py` hold the parameters and call these.
 Weights are stored [in, out] and applied as ``x @ w``, the reference's
-layout, so its trees carry across without transposes.
+layout, so its trees carry across without transposes.  The logical
+sharding axes of every parameter are declared beside it in the `*_axes`
+helpers (one axis name or None per dimension), read by
+`repro_torch.distributed.sharding`.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ __all__ = [
     "dense_init",
     "embed_tokens",
     "lm_logits",
+    "mlp_axes",
     "mlp_shapes",
+    "norm_axes",
     "rope_frequencies",
 ]
 
@@ -46,6 +51,13 @@ def apply_norm(
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def norm_axes(kind: str) -> dict:
+    p = {"scale": (None,)}
+    if kind == "ln":
+        p["bias"] = (None,)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +124,22 @@ def mlp_shapes(d_model: int, d_ff: int, act: str) -> dict[str, tuple[int, ...]]:
         "bi": (d_ff,),
         "wo": (d_ff, d_model),
         "bo": (d_model,),
+    }
+
+
+def mlp_axes(act: str) -> dict:
+    """Parameter name -> logical axes, the names of `mlp_shapes`."""
+    if act in ("swiglu", "geglu"):
+        return {
+            "wi_gate": ("embed", "mlp"),
+            "wi_up": ("embed", "mlp"),
+            "wo": ("mlp", "embed"),
+        }
+    return {
+        "wi": ("embed", "mlp"),
+        "bi": ("mlp",),
+        "wo": ("mlp", "embed"),
+        "bo": ("embed",),
     }
 
 

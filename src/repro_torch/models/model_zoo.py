@@ -6,6 +6,9 @@
   forward(module, batch, triangular=False) -> logits    (prefill compute)
   decode_step(module, caches, tokens, index, seq_len) -> (logits, caches)
   init_caches(module, batch, seq_len, device=None, frames=None) -> caches
+  input_specs(shape)                 -> batch of meta tensors
+  cache_specs(shape)                 -> caches of meta tensors
+  param_axes()                       -> parameter name -> logical axes
 
 Batches are dicts of tensors: ``tokens`` and ``labels`` [B, S], and the
 stub modality frontend's input where the family needs one: ``frames``
@@ -14,10 +17,14 @@ vlm.  Every family of the reference is in the port: dense, moe, ssm,
 hybrid, vlm and encdec.  For encdec, `init_caches` runs the encoder
 over `frames` (zeros [B, max(seq_len // enc_seq_divisor, 1), D] in the
 compute dtype when none are given); the other families ignore them.
-``index`` of `decode_step` is a Python int.  The reference's
-`input_specs`, `cache_specs` and `param_axes` serve its sharding plans
-and dry run, and wait for the port of `distributed/sharding.py`
-(`ROADMAP.md` §A).
+``index`` of `decode_step` is a Python int.
+
+`input_specs` and `cache_specs` give a `ShapeConfig`'s batch and caches
+as tensors on the ``meta`` device (shape and dtype, no storage: the
+counterpart of the reference's ``jax.ShapeDtypeStruct``); `param_axes`
+keys each parameter's logical axes by its `named_parameters()` name.
+They serve the sharding plans (`repro_torch.distributed.sharding`) and
+the step builders (`repro_torch.launch.steps`).
 """
 from __future__ import annotations
 
@@ -27,11 +34,13 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from . import encdec
 from . import transformer as tfm
 
 __all__ = ["Model", "build_model"]
+
+_I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +51,78 @@ class Model:
     forward: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_caches: Callable[..., Any]
+    input_specs: Callable[[ShapeConfig], dict]
+    cache_specs: Callable[[ShapeConfig], dict]
+    param_axes: Callable[[], dict]
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _lm_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": _spec((b, s), _I32), "labels": _spec((b, s), _I32)}
+    if shape.kind == "prefill":
+        return {"tokens": _spec((b, s), _I32)}
+    return {"tokens": _spec((b, 1), _I32)}
+
+
+def _vlm_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s, p = shape.global_batch, shape.seq_len, cfg.n_patches
+    st = max(s - p, 1)
+    emb = _spec((b, p, cfg.d_model), tfm.torch_dtype(cfg.compute_dtype))
+    if shape.kind == "train":
+        return {"tokens": _spec((b, st), _I32), "labels": _spec((b, st), _I32),
+                "frontend_embeds": emb}
+    if shape.kind == "prefill":
+        return {"tokens": _spec((b, st), _I32), "frontend_embeds": emb}
+    return {"tokens": _spec((b, 1), _I32)}
+
+
+def _encdec_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    t_enc = max(s // cfg.enc_seq_divisor, 1)
+    frames = _spec((b, t_enc, cfg.d_model), tfm.torch_dtype(cfg.compute_dtype))
+    if shape.kind == "train":
+        return {"frames": frames, "tokens": _spec((b, s), _I32),
+                "labels": _spec((b, s), _I32)}
+    if shape.kind == "prefill":
+        return {"frames": frames, "tokens": _spec((b, s), _I32)}
+    return {"tokens": _spec((b, 1), _I32), "frames": frames}
+
+
+def _lm_cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """`tfm.init_decode_caches`' tree: KV caches in the compute dtype (in
+    ``cfg.cache_layout``), the SSM's state and conv tail in f32."""
+    cd = tfm.torch_dtype(cfg.compute_dtype)
+    b, s, n = shape.global_batch, shape.seq_len, cfg.n_layers
+    specs: dict[str, torch.Tensor] = {}
+    if cfg.family != "ssm":
+        c = tfm.cache_len_for(cfg, s)
+        if cfg.cache_layout == "bksd":
+            kv = (n, b, cfg.n_kv_heads, c, cfg.head_dim)
+        else:
+            kv = (n, b, c, cfg.n_kv_heads, cfg.head_dim)
+        specs["k"] = _spec(kv, cd)
+        specs["v"] = _spec(kv, cd)
+    if cfg.family in ("ssm", "hybrid"):
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        specs["ssm_state"] = _spec(
+            (n, b, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+        specs["conv"] = _spec((n, b, cfg.ssm_conv_width - 1, conv_dim), torch.float32)
+    return specs
+
+
+def _encdec_cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """`encdec.init_encdec_caches`' tree, always ``bskd``."""
+    cd = tfm.torch_dtype(cfg.compute_dtype)
+    b, s, n = shape.global_batch, shape.seq_len, cfg.n_layers
+    t_enc = max(s // cfg.enc_seq_divisor, 1)
+    kv = _spec((n, b, s, cfg.n_kv_heads, cfg.head_dim), cd)
+    cross = _spec((n, b, t_enc, cfg.n_kv_heads, cfg.head_dim), cd)
+    return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
@@ -67,7 +148,10 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return encdec.init_encdec_caches(module, frames, seq_len)
 
     return Model(cfg=cfg, init=init, loss=loss, forward=forward,
-                 decode_step=decode_step, init_caches=init_caches)
+                 decode_step=decode_step, init_caches=init_caches,
+                 input_specs=lambda shape: _encdec_specs(cfg, shape),
+                 cache_specs=lambda shape: _encdec_cache_specs(cfg, shape),
+                 param_axes=lambda: encdec.encdec_axes(cfg))
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -94,5 +178,9 @@ def build_model(cfg: ModelConfig) -> Model:
             device = module.embed.device
         return tfm.init_decode_caches(cfg, batch, seq_len, device)
 
+    specs = _vlm_specs if cfg.family == "vlm" else _lm_specs
     return Model(cfg=cfg, init=init, loss=loss, forward=forward,
-                 decode_step=decode_step, init_caches=init_caches)
+                 decode_step=decode_step, init_caches=init_caches,
+                 input_specs=lambda shape: specs(cfg, shape),
+                 cache_specs=lambda shape: _lm_cache_specs(cfg, shape),
+                 param_axes=lambda: tfm.lm_axes(cfg))

@@ -24,7 +24,7 @@ from torch import nn
 
 from .layers import dense_init
 
-__all__ = ["MoE", "apply_moe", "capacity", "dropped", "top_k"]
+__all__ = ["MoE", "apply_moe", "capacity", "dropped", "moe_axes", "top_k"]
 
 
 class MoE(nn.Module):
@@ -42,6 +42,17 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return apply_moe(self, x, self.cfg)
+
+
+def moe_axes() -> dict:
+    """Logical axes of `MoE`'s parameters.  Expert weights are 2D-sharded:
+    experts over `model` (EP), the expert hidden dim over `data`."""
+    return {
+        "router": ("embed", None),
+        "wi_gate": ("expert", "embed", "expert_mlp"),
+        "wi_up": ("expert", "embed", "expert_mlp"),
+        "wo": ("expert", "expert_mlp", "embed"),
+    }
 
 
 def capacity(tokens: int, cfg) -> int:

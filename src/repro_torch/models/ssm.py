@@ -23,7 +23,7 @@ from torch import nn
 
 from .layers import dense_init
 
-__all__ = ["SSM", "apply_ssm", "decode_ssm", "init_ssm_cache"]
+__all__ = ["SSM", "apply_ssm", "decode_ssm", "init_ssm_cache", "ssm_axes"]
 
 
 def _dims(cfg):
@@ -54,6 +54,20 @@ class SSM(nn.Module):
         self.dt_bias = param(torch.zeros(h, dtype=f32, device=device))
         self.out_proj = param(dense_init(generator, (d_inner, d), dtype, device))
         self.gate_norm_scale = param(torch.ones(d_inner, dtype=dtype, device=device))
+
+
+def ssm_axes() -> dict:
+    """Logical axes of `SSM`'s parameters."""
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "out_proj": ("mlp", "embed"),
+        "gate_norm_scale": ("mlp",),
+    }
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

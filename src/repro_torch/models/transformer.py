@@ -22,6 +22,12 @@ Two reference behaviours that follow from the stacked layout are kept:
   norm scale is a stacked [L, d] leaf: `decay_mask` names that set;
 - `params_from_jax` splits the [L, ...] axis into the layer modules.
 
+The logical sharding axes (`lm_axes`, from `block_axes`, `attn_axes` and
+the layers' own helpers) are keyed by the names `named_parameters()`
+gives.  The reference stacks each per-layer leaf under ``scan_layers``
+with a leading ``"layer"`` axis; every plan replicates that axis, and
+here each layer's leaf has its own name and no such axis.
+
 Decode (`decode_step_lm`) keeps the reference's cache tree: a dict
 ``{"k", "v"[, "ssm_state", "conv"]}`` of stacked [L, ...] tensors, the KV
 caches in the ``bskd`` or ``bksd`` layout.  Each layer's slice is written
@@ -53,16 +59,22 @@ from .layers import (
     dense_init,
     embed_tokens,
     lm_logits,
+    mlp_axes,
     mlp_shapes,
+    norm_axes,
 )
 
 __all__ = [
     "TransformerLM",
+    "attn_axes",
+    "block_axes",
     "cache_len_for",
     "check_device",
     "decay_mask",
     "decode_step_lm",
     "init_decode_caches",
+    "flat_axes",
+    "lm_axes",
     "lm_loss",
     "params_from_jax",
 ]
@@ -266,6 +278,66 @@ class Block(nn.Module):
             if _has_ssm(cfg):
                 x_tok = x_tok + self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
         return self._feed_forward(x_tok)[0]
+
+
+def attn_axes(cfg) -> dict:
+    """Logical axes of `Attention`'s parameters.  The KV projections carry
+    their own axis: a plan may replicate them where n_kv_heads does not
+    divide the tensor-parallel degree."""
+    p = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    return p
+
+
+def block_axes(cfg) -> dict:
+    """Logical axes of one `Block`, nested as its submodules."""
+    ax: dict = {}
+    if _has_attention(cfg):
+        ax["attn_norm"] = norm_axes(cfg.norm)
+        ax["attn"] = attn_axes(cfg)
+    if _has_ssm(cfg):
+        ax["ssm_norm"] = norm_axes(cfg.norm)
+        ax["ssm"] = ssm_lib.ssm_axes()
+    if cfg.family == "hybrid":
+        ax["attn_out_norm"] = norm_axes("rms")
+        ax["ssm_out_norm"] = norm_axes("rms")
+    if _has_moe(cfg):
+        ax["moe_norm"] = norm_axes(cfg.norm)
+        ax["moe"] = moe_lib.moe_axes()
+    if _has_mlp(cfg):
+        ax["mlp_norm"] = norm_axes(cfg.norm)
+        ax["mlp"] = mlp_axes(cfg.act)
+    return ax
+
+
+def flat_axes(tree: dict, prefix: str = "") -> dict[str, tuple]:
+    """A nested dict of axis tuples, keyed by dotted parameter names."""
+    out: dict[str, tuple] = {}
+    for key, node in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(node, dict):
+            out.update(flat_axes(node, name + "."))
+        else:
+            out[name] = tuple(node)
+    return out
+
+
+def lm_axes(cfg) -> dict[str, tuple]:
+    """Parameter name (as `TransformerLM.named_parameters` gives it) ->
+    logical axes, one per dimension."""
+    axes = {"embed": ("vocab", "embed")}
+    for i in range(cfg.n_layers):
+        axes.update(flat_axes(block_axes(cfg), f"layers.{i}."))
+    axes.update(flat_axes(norm_axes(cfg.norm), "final_norm."))
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
 
 
 class TransformerLM(nn.Module):

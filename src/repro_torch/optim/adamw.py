@@ -75,17 +75,20 @@ def apply_updates(
     grads: dict[str, torch.Tensor],
     state: OptState,
     decay: dict[str, bool] | None = None,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], OptState, dict[str, torch.Tensor]]:
     """One AdamW step, written into `params` (and the moments) in place.
 
     `decay` names the parameters that take decoupled weight decay; by
     default those of two or more dimensions (the reference's rule on its
     own tree — `models.transformer.decay_mask` gives that set for a model
-    whose reference tree stacks its layers).
+    whose reference tree stacks its layers).  `grad_norm` is the global
+    norm the clip reads, by default that of `grads`: a sharded step
+    passes the norm of the whole gradients with its shards of them.
     """
     if decay is None:
         decay = {n: p.dim() >= 2 for n, p in params.items()}
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     count = state.count + 1
     b1c = 1 - cfg.b1 ** count.float()

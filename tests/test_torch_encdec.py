@@ -40,6 +40,8 @@ from repro.models import encdec as ref_encdec  # noqa: E402
 from repro.optim import AdamWConfig as RefAdamWConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.distributed import sharding as port_sharding  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh as port_local_mesh  # noqa: E402
 from repro_torch.launch.steps import build_train_step, init_train_state  # noqa: E402
 from repro_torch.models import build_model, encdec  # noqa: E402
 from repro_torch.models.attention import full_cross_attention  # noqa: E402
@@ -430,7 +432,9 @@ def test_one_train_step():
     model = build_model(cfg)
     port = init_train_state(model, device="cpu")
     port.params.load_state_dict(params_from_jax(start, cfg))
-    step = build_train_step(model, AdamWConfig(**dataclasses.asdict(opt)))
+    step, _ = build_train_step(model, port_local_mesh(device="cpu"),
+                               port_sharding.BASELINE_PLAN,
+                               AdamWConfig(**dataclasses.asdict(opt)))
     port, got = step(port, _tensors(batch))
     assert int(port.step) == 1
     assert float(got["loss"]) == pytest.approx(want_loss, rel=1e-6)

@@ -89,7 +89,14 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.models.ssm", "repro_torch.launch.serve",
                  "repro_torch.optim.adamw",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.examples.hidden_rank_demo",
+                 "repro_torch.examples.whatif_demo",
+                 "repro_torch.examples.fleet_monitor",
+                 "repro_torch.examples.serve_demo",
+                 "repro_torch.examples.quickstart"):
         assert name in out["modules"]
 
 

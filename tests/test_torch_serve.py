@@ -34,7 +34,9 @@ from repro.models import attention as ref_attention  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
 from repro.models import transformer as ref_tfm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.distributed.sharding import BASELINE_PLAN, DECODE_PLAN  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step, build_serve_step  # noqa: E402
 from repro_torch.models import attention, build_model, moe  # noqa: E402
 from repro_torch.models.transformer import cache_len_for, params_from_jax  # noqa: E402
@@ -202,7 +204,7 @@ def test_greedy_serve_loop_equals_the_reference(arch):
 
     ref_step = jax.jit(lambda c, t, i: ref_model.decode_step(params, c, t, i, seq))
     ref_caches = ref_model.init_caches(params, b, seq)
-    serve_step = build_serve_step(model, seq)
+    serve_step, _ = build_serve_step(model, make_local_mesh(device="cpu"), DECODE_PLAN, seq)
     caches = model.init_caches(module, b, seq)
     for i in range(p):
         ref_logits, ref_caches = ref_step(ref_caches, jnp.asarray(prompts[:, i:i + 1]),
@@ -227,7 +229,8 @@ def test_prefill_step_is_the_forward_without_grad():
     module = model.init(device="cpu")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
                                      generator=torch.Generator().manual_seed(0))}
-    logits = build_prefill_step(model)(module, batch)
+    prefill, _ = build_prefill_step(model, make_local_mesh(device="cpu"), BASELINE_PLAN)
+    logits = prefill(module, batch)
     assert not logits.requires_grad
     with torch.no_grad():
         torch.testing.assert_close(logits, model.forward(module, batch), rtol=0, atol=0)

@@ -45,6 +45,8 @@ from repro_torch.checkpoint import (  # noqa: E402
 from repro_torch.configs import ARCHITECTURES, get_config  # noqa: E402
 from repro_torch.data import PrefetchPipeline, SyntheticTokens  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.distributed import sharding as port_sharding  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh as port_local_mesh  # noqa: E402
 from repro_torch.launch.steps import build_train_step, init_train_state  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import chunked_causal_attention  # noqa: E402
@@ -321,8 +323,9 @@ def test_three_train_steps(accum):
     model = build_model(cfg)
     port = init_train_state(model, device="cpu")
     port.params.load_state_dict(params_from_jax(ref_params, cfg))
-    step = build_train_step(model, AdamWConfig(**dataclasses.asdict(opt)),
-                            accum_steps=accum)
+    step, _ = build_train_step(model, port_local_mesh(device="cpu"),
+                               port_sharding.BASELINE_PLAN,
+                               AdamWConfig(**dataclasses.asdict(opt)), accum_steps=accum)
     got = []
     for i in range(3):
         port, m = step(port, _tensors(host_batch(i)))
@@ -445,7 +448,8 @@ class TestCheckpoint:
                                   param_dtype="bfloat16", compute_dtype="bfloat16")
         model = build_model(cfg)
         state = init_train_state(model, torch.Generator().manual_seed(5), "cpu")
-        step = build_train_step(model, AdamWConfig(warmup_steps=1))
+        step, _ = build_train_step(model, port_local_mesh(device="cpu"),
+                                   port_sharding.BASELINE_PLAN, AdamWConfig(warmup_steps=1))
         state, _ = step(state, _tensors(_batch(cfg.vocab_size, shape=(2, 16))))
         save_checkpoint(str(tmp_path), 1, state.tree())
         fresh = init_train_state(model, torch.Generator().manual_seed(6), "cpu")
