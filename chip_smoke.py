@@ -160,7 +160,19 @@ package — in these phases, and exits non-zero if any fails:
            steps bit for bit, every parameter, moment and cache
            included; `compress_grads` on the card equals its CPU result
            on the same leaves bit for bit.  The train and serve phases
-           above build their steps through the same mesh and plans.
+           above build their steps through the same mesh and plans;
+  dryrun   `python -m repro_torch.launch.dryrun` on a fake 256/512-rank
+           group, in subprocesses, all at once: qwen1.5-0.5b train_4k (one
+           microbatch), mamba2-130m decode_32k on both meshes, phi3.5-moe
+           and whisper-base decode_32k, and the skipped paper-gpt-125m
+           long_500k, each with `--device cuda` and `--device cpu` into
+           build/dryrun/: every row `ok` or `skipped`, every card row
+           equal to its CPU row outside `compile_s`, `delta_s` and
+           `wall_s`; one `run_cell` in this process leaves
+           `torch.cuda.memory_allocated()` unchanged and no process group
+           up; then the dry run of the train phase's own step
+           (paper-gpt-125m, one device, 8 x 512, bf16) beside that
+           phase's measured peak: its `args_bytes` must not exceed it.
 
 It prints a `kernels` JSON line, the card's name and power limit
 (nvidia-smi), and last `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -1419,11 +1431,12 @@ def train_profile(torch, train) -> dict:
                 top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]])
 
 
-def train_phase(torch, np, smi: str) -> None:
+def train_phase(torch, np, smi: str) -> int:
     """The training driver with the monitor on the card: (a) paper-gpt-125m
     at full width, bf16 with remat, and the same run profiled; (b) data
     stalls, one the prefetch hides and one it cannot; (c) one step on the
-    card against the CPU; (d) the gather on NCCL."""
+    card against the CPU; (d) the gather on NCCL.  Returns run (a)'s peak
+    memory in bytes."""
     from repro_torch.launch import train
 
     summary, stats = train_run(torch, train, TRAIN_ARGS)
@@ -1449,6 +1462,7 @@ def train_phase(torch, np, smi: str) -> None:
                                  f"window to data.next_wait: {stalled['windows']}")
     print("train_check " + json.dumps(card_against_cpu(torch, np)), flush=True)
     print("train_nccl " + json.dumps(nccl_gather(torch, np)), flush=True)
+    return stats["max_memory_allocated"]
 
 
 #: the serve phase (a): the model serve driver at paper-gpt-125m's full
@@ -1972,6 +1986,110 @@ def mesh_phase(torch, np) -> dict:
                                            for sh in state_sh.moments.values()}))
 
 
+#: the dryrun phase: (arch, shape, mesh, flags), one CLI call each on the
+#: card and on the CPU (the tests' cells, whisper-base and a skipped cell)
+DRYRUN_CELLS = [
+    ("qwen1.5-0.5b", "train_4k", "single", ["--accum", "1"]),
+    ("mamba2-130m", "decode_32k", "both", []),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "single", []),
+    ("whisper-base", "decode_32k", "single", []),
+    ("paper-gpt-125m", "long_500k", "single", []),
+]
+#: a row's wall-clock fields, the only ones a card row may differ in
+DRYRUN_CLOCKS = ("compile_s", "delta_s", "wall_s")
+
+
+def dryrun_phase(torch, train_peak: int) -> dict:
+    """The dry run on the card: `DRYRUN_CELLS` on the card and on the CPU
+    in subprocesses, rows equal outside `DRYRUN_CLOCKS`; one `run_cell`
+    in process allocates nothing on the card and leaves no group; the
+    train phase's own step dry-run on one device against its measured
+    peak (`train_peak` bytes)."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import BASELINE_PLAN
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--device", device,
+         "--out", os.path.join(out_dir, device)] + flags,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for device in ("cuda", "cpu") for arch, shape, mesh, flags in DRYRUN_CELLS]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"dry run {p.args[3:11]} exited {p.returncode}: "
+                                     f"{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rows = {}
+    for device in ("cuda", "cpu"):
+        folder = os.path.join(out_dir, device)
+        rows[device] = {}
+        for name in sorted(os.listdir(folder)):
+            with open(os.path.join(folder, name)) as f:
+                rows[device][name] = {k: v for k, v in json.load(f).items()
+                                      if k not in DRYRUN_CLOCKS}
+    if sorted(rows["cuda"]) != sorted(rows["cpu"]) or len(rows["cuda"]) != 6:
+        raise AssertionError(f"dry run rows: {sorted(rows['cuda'])} vs {sorted(rows['cpu'])}")
+    for name, row in rows["cuda"].items():
+        if row["status"] not in ("ok", "skipped"):
+            raise AssertionError(f"dry run {name}: {row.get('error', row['status'])}")
+        if row != rows["cpu"][name]:
+            keys = sorted(k for k in row if row[k] != rows["cpu"][name].get(k))
+            raise AssertionError(f"dry run {name}: card row differs from the CPU's in {keys}")
+
+    before = torch.cuda.memory_allocated()
+    cell = dryrun.run_cell("mamba2-130m", "decode_32k", "single", device="cuda")
+    if torch.cuda.memory_allocated() != before or dist.is_initialized():
+        raise AssertionError(f"run_cell: {torch.cuda.memory_allocated() - before} bytes "
+                             f"on the card, group up {dist.is_initialized()}")
+    if cell["status"] != "ok" or cell["n_chips"] != 256:
+        raise AssertionError(f"run_cell: {cell}")
+
+    # the train phase's own step (`TRAIN_ARGS`: the driver caps the chunks at --seq)
+    batch, seq = int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1]), int(
+        TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1])
+    cfg = get_config("paper-gpt-125m")
+    cfg = dataclasses.replace(cfg, attn_q_chunk=min(cfg.attn_q_chunk, seq),
+                              attn_kv_chunk=min(cfg.attn_kv_chunk, seq))
+    train = dryrun.measure_cell(cfg, ShapeConfig("train_phase", seq, batch, "train"),
+                                make_local_mesh(device="cuda"), BASELINE_PLAN, "cuda")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("the one-device dry run allocated on the card")
+    if train["memory"]["args_bytes"] > train_peak:
+        raise AssertionError(f"dry run args_bytes {train['memory']['args_bytes']} over the "
+                             f"train phase's peak {train_peak}")
+    summary = {name: {k: row.get(k) for k in ("status", "n_chips", "plan", "accum")}
+               | ({"flops": row["costs"]["flops"],
+                   "coll_bytes": row["costs"]["coll_bytes"],
+                   "args_bytes": row["memory"]["args_bytes"],
+                   "temp_bytes": row["memory"]["temp_bytes"],
+                   "total_per_device_gib": row["memory"]["total_per_device_gib"],
+                   "dominant": row["roofline"]["dominant"]} if row["status"] == "ok" else {})
+               for name, row in rows["cuda"].items()}
+    return dict(wall_s=wall, rows=summary, train_step=dict(
+        shape=[batch, seq], memory=train["memory"], measured_peak_bytes=train_peak,
+        predicted_total_bytes=round(train["memory"]["total_per_device_gib"] * 2**30)))
+
+
 def profile_phase(torch, serve_fleet, label, argv) -> None:
     """A service run once more under torch.profiler: device busy time by
     kernel, against the service's own tick time (obs)."""
@@ -2113,7 +2231,7 @@ def main() -> int:
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
     smi = card_name()
-    train_phase(torch, np, smi)
+    train_peak = train_phase(torch, np, smi)
     serve_phase(torch, smi)
     ex_fused, ex_families = {}, {}
     examples_phase(torch, fused, kernels, coact, ex_fused, ex_families)
@@ -2126,6 +2244,8 @@ def main() -> int:
     if not ex_fused_rows:
         raise AssertionError("the examples handed the fused tick no group")
     print("mesh " + json.dumps(dict(card=smi, **mesh_phase(torch, np))), flush=True)
+    print("dryrun " + json.dumps(dict(card=smi, **dryrun_phase(torch, train_peak))),
+          flush=True)
     if FAILURES:
         fail(f"{len(FAILURES)} kernel measurements failed: {FAILURES}")
     case_rows = {name: [r["four_dispatch"][name] for r in rows]

@@ -19,7 +19,9 @@ plan's batch axes (``Shard(0)``, or ``Shard(1)`` of [accum, micro, ...]).
 The step gathers the weights at use, as GSPMD gathers a weight stored
 sharded; each rank computes the loss of its own batch shard weighted by
 its share of the global batch's supervised tokens (labels of -1 are
-ignored, so a mean of per-rank means is not the global mean); the
+ignored, so a mean of per-rank means is not the global mean), and the
+MoE load-balance term, a mean over dispatch groups, by its share of the
+groups (each rank must hold a whole number of them); the
 gradients are summed over the batch axes, so the global-norm clip sees
 all of them; the AdamW update runs on each moment's shard and the new
 weights go back to the plan's placements.  The tensor-parallel and
@@ -205,20 +207,20 @@ def shard_train_state(state: TrainState, state_sh: StateShardings) -> TrainState
 class _Gathered:
     """A plain replica of the model on this rank's device whose weights
     are the DTensors' full values, refreshed at every call (the
-    all-gather GSPMD inserts where a sharded weight is used)."""
+    all-gather GSPMD inserts where a sharded weight is used).  Its meta
+    module is made when the step is built: `to_empty` cannot move a
+    module made under `FakeTensorMode` (the dry run's) onto a device."""
 
     def __init__(self, model: Model):
-        self.model = model
+        with torch.device("meta"):
+            self.meta = model.init(device="meta")
         self.module = None
 
     @torch.no_grad()
     def __call__(self, params: nn.Module) -> nn.Module:
         full = {n: p.full_tensor() for n, p in params.named_parameters()}
         if self.module is None:
-            device = next(iter(full.values())).device
-            with torch.device("meta"):
-                module = self.model.init(device="meta")
-            self.module = module.to_empty(device=device)
+            self.module = self.meta.to_empty(device=next(iter(full.values())).device)
         for n, p in self.module.named_parameters():
             p.copy_(full[n])
         return self.module
@@ -254,16 +256,32 @@ def _reshard(full: torch.Tensor, mesh: DeviceMesh, sh: Sharding) -> torch.Tensor
         mesh, sh.placements).to_local()
 
 
+def _group_share(cfg, mb: dict, shards: int) -> float:
+    """This rank's share of a microbatch's MoE dispatch groups (1/shards).
+
+    The reference groups the global token array; the ranks' groups are
+    those groups only where each rank holds a whole number of them.
+    """
+    tokens = mb["tokens"].shape[0] * (
+        mb["tokens"].shape[1]
+        + (mb["frontend_embeds"].shape[1] if "frontend_embeds" in mb else 0))
+    group = min(cfg.moe_group, tokens * shards)
+    if shards > 1 and tokens % group:
+        raise ValueError(
+            f"the moe step over {shards} batch shards needs each rank's tokens "
+            f"({tokens}) to be a whole number of dispatch groups of {group}"
+        )
+    return 1.0 / shards
+
+
 def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, triangular):
     replica = _Gathered(model)
     leaves, partial = _batch_layout(mesh, plan, 1 if accum_steps > 1 else 0)
+    shards = 1
+    for i, p in enumerate(leaves):
+        shards *= mesh.size(i) if isinstance(p, Shard) else 1
 
     def train_step(state: TrainState, batch: dict):
-        if model.cfg.family == "moe":
-            raise NotImplementedError(
-                "the moe family's step on a mesh of more than one device is not "
-                "ported: its load-balance loss is not a per-token mean"
-            )
         module = replica(state.params)
         weights = list(module.parameters())
         local = _local_batch(batch, mesh, leaves)
@@ -273,10 +291,15 @@ def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, trian
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in weights]
         for mb in micro:
-            # this shard's share of the global mean over supervised tokens
+            # this shard's share of the global means: over supervised
+            # tokens for the cross-entropy, over dispatch groups for the
+            # MoE aux
             count = (mb["labels"] >= 0).sum().to(torch.float32)
             share = count / _sum_over_batch(count, mesh, partial).clamp_min(1)
-            part = model.loss(module, mb, triangular=triangular) * share
+            ce, aux = model.loss_parts(module, mb, triangular=triangular)
+            part = ce * share
+            if model.cfg.family == "moe" and model.cfg.n_experts:
+                part = part + aux * _group_share(model.cfg, mb, shards)
             loss = loss + part.detach()
             grads = [a + g for a, g in zip(grads, torch.autograd.grad(part, weights))]
         loss = _sum_over_batch(loss, mesh, partial) / accum_steps

@@ -3,6 +3,7 @@
   init(generator=None, device="cuda") -> the module (the parameters):
                                           TransformerLM, or EncDecLM for encdec
   loss(module, batch, triangular=False)   -> scalar     (train objective)
+  loss_parts(module, batch, triangular=False) -> (ce, aux), loss = ce + aux
   forward(module, batch, triangular=False) -> logits    (prefill compute)
   decode_step(module, caches, tokens, index, seq_len) -> (logits, caches)
   init_caches(module, batch, seq_len, device=None, frames=None) -> caches
@@ -48,6 +49,7 @@ class Model:
     cfg: ModelConfig
     init: Callable[..., nn.Module]
     loss: Callable[..., Any]
+    loss_parts: Callable[..., Any]
     forward: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_caches: Callable[..., Any]
@@ -133,6 +135,10 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return encdec.encdec_loss(module, batch["frames"], batch["tokens"],
                                   batch["labels"], triangular=triangular)
 
+    def loss_parts(module, batch, *, triangular=False):
+        ce = loss(module, batch, triangular=triangular)
+        return ce, torch.zeros((), dtype=torch.float32, device=ce.device)
+
     def forward(module, batch, *, triangular=False):
         return module(batch["frames"], batch["tokens"], triangular=triangular)
 
@@ -147,7 +153,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
                                  device=module.embed.device if device is None else device)
         return encdec.init_encdec_caches(module, frames, seq_len)
 
-    return Model(cfg=cfg, init=init, loss=loss, forward=forward,
+    return Model(cfg=cfg, init=init, loss=loss, loss_parts=loss_parts, forward=forward,
                  decode_step=decode_step, init_caches=init_caches,
                  input_specs=lambda shape: _encdec_specs(cfg, shape),
                  cache_specs=lambda shape: _encdec_cache_specs(cfg, shape),
@@ -161,10 +167,14 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(generator=None, device="cuda"):
         return tfm.TransformerLM(cfg, device=device, generator=generator)
 
+    def loss_parts(module, batch, *, triangular=False):
+        return tfm.lm_loss_parts(module, batch["tokens"], batch["labels"],
+                                 frontend_embeds=batch.get("frontend_embeds"),
+                                 triangular=triangular)
+
     def loss(module, batch, *, triangular=False):
-        return tfm.lm_loss(module, batch["tokens"], batch["labels"],
-                           frontend_embeds=batch.get("frontend_embeds"),
-                           triangular=triangular)
+        ce, aux = loss_parts(module, batch, triangular=triangular)
+        return ce + aux
 
     def forward(module, batch, *, triangular=False):
         return module(batch["tokens"], frontend_embeds=batch.get("frontend_embeds"),
@@ -179,7 +189,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return tfm.init_decode_caches(cfg, batch, seq_len, device)
 
     specs = _vlm_specs if cfg.family == "vlm" else _lm_specs
-    return Model(cfg=cfg, init=init, loss=loss, forward=forward,
+    return Model(cfg=cfg, init=init, loss=loss, loss_parts=loss_parts, forward=forward,
                  decode_step=decode_step, init_caches=init_caches,
                  input_specs=lambda shape: specs(cfg, shape),
                  cache_specs=lambda shape: _lm_cache_specs(cfg, shape),

@@ -76,6 +76,7 @@ __all__ = [
     "flat_axes",
     "lm_axes",
     "lm_loss",
+    "lm_loss_parts",
     "params_from_jax",
 ]
 
@@ -407,6 +408,26 @@ class TransformerLM(nn.Module):
                                triangular=triangular)[0]
 
 
+def lm_loss_parts(
+    model: TransformerLM,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    frontend_embeds: torch.Tensor | None = None,
+    moe_aux_weight: float = 0.01,
+    triangular: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cross-entropy, weighted MoE aux) whose sum is `lm_loss`: the
+    first a mean over supervised tokens, the second over dispatch groups
+    (zero without experts)."""
+    logits, aux = model.forward_lm(
+        tokens, frontend_embeds=frontend_embeds, triangular=triangular)
+    if frontend_embeds is not None:
+        # labels only cover text positions; patch positions are unsupervised
+        logits = logits[:, frontend_embeds.shape[1]:, :]
+    return cross_entropy_loss(logits, labels), moe_aux_weight * aux
+
+
 def lm_loss(
     model: TransformerLM,
     tokens: torch.Tensor,
@@ -416,12 +437,9 @@ def lm_loss(
     moe_aux_weight: float = 0.01,
     triangular: bool = False,
 ) -> torch.Tensor:
-    logits, aux = model.forward_lm(
-        tokens, frontend_embeds=frontend_embeds, triangular=triangular)
-    if frontend_embeds is not None:
-        # labels only cover text positions; patch positions are unsupervised
-        logits = logits[:, frontend_embeds.shape[1]:, :]
-    return cross_entropy_loss(logits, labels) + moe_aux_weight * aux
+    ce, aux = lm_loss_parts(model, tokens, labels, frontend_embeds=frontend_embeds,
+                            moe_aux_weight=moe_aux_weight, triangular=triangular)
+    return ce + aux
 
 
 # ---------------------------------------------------------------------------

@@ -96,7 +96,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.examples.whatif_demo",
                  "repro_torch.examples.fleet_monitor",
                  "repro_torch.examples.serve_demo",
-                 "repro_torch.examples.quickstart"):
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.analysis", "repro_torch.analysis.roofline",
+                 "repro_torch.analysis.report", "repro_torch.analysis.merge_runs",
+                 "repro_torch.launch.dryrun"):
         assert name in out["modules"]
 
 

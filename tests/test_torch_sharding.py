@@ -397,11 +397,18 @@ decoded = []
 for i in range(seq):
     out, caches = serve(module, caches, tokens[:, i:i + 1], i)
     decoded.append(out.full_tensor())
+uneven_error = None
+if "uneven_batch" in case:  # each rank's tokens no whole number of groups
+    try:
+        step(state, case["uneven_batch"])
+    except ValueError as e:
+        uneven_error = str(e)
 if rank == 0:
     torch.save(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                     params=params, mu=moments, placements=before, mu_placements=mu,
                     mu_local=local, step=int(state.step), prefill=logits,
                     decode=torch.stack(decoded), cache_placements=cache_pl,
+                    uneven_error=uneven_error,
                     accum=dict(loss=float(am["loss"]), grad_norm=float(am["grad_norm"]),
                                params=accum_params)), out_path)
 print(json.dumps({"rank": rank, "ok": True}), flush=True)
@@ -435,15 +442,14 @@ def _gloo_step(tmp_path, case_path, plan, data, model_axis):
     return torch.load(out, weights_only=False)
 
 
-@pytest.fixture(scope="module")
-def one_device(tmp_path_factory):
-    """The reference's step and the port's one-device step from the same
-    weights and batch (paper-gpt-125m reduced; the first half of the
-    batch has more ignored labels than the second)."""
-    rcfg, cfg = ref_config("paper-gpt-125m").reduced(), get_config("paper-gpt-125m").reduced()
+def _ref_batch(arch, seq):
+    """The reference's step from its seed-0 weights on a batch of 4 x
+    `seq` (the first half has more ignored labels than the second), and
+    those weights and the batch as the port's."""
+    rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
     rng = np.random.default_rng(3)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32),
-             "labels": rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.int32)}
     batch["labels"][:2, :12] = -1
     batch["labels"][3, -3:] = -1
     mesh = ref_local_mesh(1, 1)
@@ -456,8 +462,31 @@ def one_device(tmp_path_factory):
         state, m = ref_step(state, {k: jnp.asarray(v) for k, v in batch.items()})
         ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                    params=params_from_jax(jax.tree.map(np.asarray, state.params), cfg))
-    weights = params_from_jax(start, cfg)
     tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return cfg, ref, params_from_jax(start, cfg), tensors
+
+
+@pytest.fixture(scope="module")
+def one_device(tmp_path_factory):
+    """The reference's step and the port's one-device step from the same
+    weights and batch (paper-gpt-125m reduced, 4 x 32)."""
+    return _one_device(tmp_path_factory, *_ref_batch("paper-gpt-125m", 32))
+
+
+@pytest.fixture(scope="module")
+def one_device_moe(tmp_path_factory):
+    """The same for phi3.5-moe reduced on 4 x 64: dispatch groups of 64
+    tokens, so on two ranks each holds two groups a step (one a
+    microbatch of two); a 2 x 96 batch gives each rank 96 tokens, no
+    whole number of groups."""
+    cfg, ref, weights, tensors = _ref_batch("phi3.5-moe-42b-a6.6b", 64)
+    rng = np.random.default_rng(4)
+    uneven = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96)).astype(np.int32))
+              for k in ("tokens", "labels")}
+    return _one_device(tmp_path_factory, cfg, ref, weights, tensors, uneven_batch=uneven)
+
+
+def _one_device(tmp_path_factory, cfg, ref, weights, tensors, **extra):
     model = build_model(cfg)
     port_state = steps.init_train_state(model, device="cpu")
     port_state.params.load_state_dict(weights)
@@ -490,7 +519,8 @@ def one_device(tmp_path_factory):
                                  for i in range(12)])
     case_path = tmp_path_factory.mktemp("gloo_case") / "case.pt"
     torch.save(dict(cfg=cfg, opt=_OPT, params=weights, batch=tensors,
-                    accum_batch=accum_batch, decode_tokens=decode_tokens), case_path)
+                    accum_batch=accum_batch, decode_tokens=decode_tokens, **extra),
+               case_path)
     return dict(ref=ref, one=one, case=case_path,
                 lr=float(lr_at(AdamWConfig(**_OPT), torch.zeros(()))))
 
@@ -506,11 +536,19 @@ def _close_params(got, want, lr):
     assert off <= 0.001 * total, (off, total)
 
 
-def test_one_device_step_equals_the_reference(one_device):
-    ref, one = one_device["ref"], one_device["one"]
+def _equals_the_reference(case):
+    ref, one = case["ref"], case["one"]
     assert one["loss"] == pytest.approx(ref["loss"], rel=1e-5)
     assert one["grad_norm"] == pytest.approx(ref["grad_norm"], rel=1e-5)
-    _close_params(one["params"], ref["params"], one_device["lr"])
+    _close_params(one["params"], ref["params"], case["lr"])
+
+
+def test_one_device_step_equals_the_reference(one_device):
+    _equals_the_reference(one_device)
+
+
+def test_one_device_moe_step_equals_the_reference(one_device_moe):
+    _equals_the_reference(one_device_moe)
 
 
 @pytest.mark.parametrize("plan,data,model_axis", [("DP_ALL_PLAN", 2, 1),
@@ -557,3 +595,26 @@ def test_two_gloo_ranks_equal_the_one_device_step(one_device, tmp_path, plan, da
         assert got["mu_placements"]["layers.0.attn.wq"] == ["Shard(dim=0)", "Replicate()"]
         # DECODE_PLAN on (2, 1): the cache batch over `data`
         assert got["cache_placements"]["k"] == ["Shard(dim=1)", "Replicate()"]
+
+
+def test_two_gloo_ranks_moe_equal_the_one_device_step(one_device_moe, tmp_path):
+    """phi3.5-moe under DP_ALL_PLAN on (2, 1), the ignored labels split
+    unevenly: each rank weights the cross-entropy by its share of the
+    supervised tokens and the load-balance term by its share of the
+    dispatch groups, so the step is the one-device step within the
+    tolerances of the dense case; a batch whose rank shards are no whole
+    number of groups raises."""
+    got = _gloo_step(tmp_path, one_device_moe["case"], "DP_ALL_PLAN", 2, 1)
+    one, lr = one_device_moe["one"], one_device_moe["lr"]
+    assert got["step"] == 1
+    assert got["loss"] == pytest.approx(one["loss"], rel=1e-6)
+    assert got["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-6)
+    _close_params(got["params"], one["params"], lr)
+    _close_params(got["mu"], one["mu"], lr)
+    assert got["accum"]["loss"] == pytest.approx(one["accum"]["loss"], rel=1e-6)
+    assert got["accum"]["grad_norm"] == pytest.approx(one["accum"]["grad_norm"], rel=1e-6)
+    _close_params(got["accum"]["params"], one["accum"]["params"], lr)
+    assert torch.equal(got["decode"], one["decode"])
+    torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
+    assert "whole number of dispatch groups of 64" in got["uneven_error"]
+    assert "(96)" in got["uneven_error"]
