@@ -170,7 +170,10 @@ package — in these phases, and exits non-zero if any fails:
            equal to its CPU row outside `compile_s`, `delta_s` and
            `wall_s`; one `run_cell` in this process leaves
            `torch.cuda.memory_allocated()` unchanged and no process group
-           up; then the dry run of the train phase's own step
+           up; the qwen train row's per-device FLOPs and all-gather bytes
+           (its step computes on its shards of the weights: Megatron
+           tensor parallelism under BASELINE_PLAN) on a line of their
+           own; then the dry run of the train phase's own step
            (paper-gpt-125m, one device, 8 x 512, bf16) beside that
            phase's measured peak: its `args_bytes` must not exceed it.
 
@@ -1893,7 +1896,11 @@ def mesh_phase(torch, np) -> dict:
     layers, f32) equal the plain steps bit for bit (loss, grad norm, every
     parameter and moment after each step; every decode step's logits and
     the caches); `compress_grads` on the card equals its CPU result on the
-    same leaves bit for bit over three steps."""
+    same leaves bit for bit over three steps.  On one device no weight is
+    split, so the tensor-parallel path (a context of None) is the plain
+    code; the card holds one rank, so a tensor-parallel step's values are
+    held on the CPU over Gloo ranks (`tests/test_torch_sharding.py`) and
+    its counts here by the dryrun phase."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2077,6 +2084,14 @@ def dryrun_phase(torch, train_peak: int) -> dict:
     if train["memory"]["args_bytes"] > train_peak:
         raise AssertionError(f"dry run args_bytes {train['memory']['args_bytes']} over the "
                              f"train phase's peak {train_peak}")
+    # the train cell's tensor-parallel counts: each rank computes on its
+    # shards of the weights, so no whole weight is gathered
+    qwen = rows["cuda"]["single__qwen1.5-0.5b__train_4k.json"]["costs"]
+    print("dryrun-tensor-parallel " + json.dumps({
+        "cell": "qwen1.5-0.5b train_4k (16, 16), one microbatch",
+        "flops_per_device": qwen["flops"],
+        "all_gather_bytes": qwen["coll_by_kind"]["all-gather"],
+        "all_reduce_bytes": qwen["coll_by_kind"]["all-reduce"]}), flush=True)
     summary = {name: {k: row.get(k) for k in ("status", "n_chips", "plan", "accum")}
                | ({"flops": row["costs"]["flops"],
                    "coll_bytes": row["costs"]["coll_bytes"],

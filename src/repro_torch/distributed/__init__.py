@@ -1,5 +1,6 @@
-"""Distribution: sharding plans, operational policy, gradient compression
-(and the telemetry wire codecs in `compression`)."""
+"""Distribution: sharding plans, tensor-parallel compute
+(`tensor_parallel`), operational policy, gradient compression (and the
+telemetry wire codecs in `compression`)."""
 from .compression import EFState, compress_grads, init_ef
 from .policy import Action, MonitorPolicy
 from .sharding import BASELINE_PLAN, DECODE_PLAN, ShardingPlan, tree_shardings

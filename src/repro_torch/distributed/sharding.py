@@ -27,6 +27,8 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
+from .tensor_parallel import TensorParallel
+
 __all__ = [
     "ShardingPlan",
     "Sharding",
@@ -42,6 +44,8 @@ __all__ = [
     "cache_sharding",
     "ssm_cache_sharding",
     "shard_placements",
+    "compute_placements",
+    "tensor_parallel",
 ]
 
 MeshAxes = tuple[str, ...] | str | None
@@ -170,6 +174,47 @@ class Sharding:
             if size % prod != 0:
                 dims[i] = None
         return Sharding(self.mesh, tuple(dims))
+
+
+def compute_placements(sh: Sharding, plan: ShardingPlan) -> tuple:
+    """The placements a train or prefill step computes a parameter with.
+
+    A split over an axis of the plan's ``batch_axes`` is storage (FSDP,
+    `DP_FSDP_PLAN`'s ``model``, `BASELINE_PLAN`'s ``expert_mlp`` over
+    ``data``): the weight is gathered at use, ``Replicate()``.  A split
+    over any other axis is tensor or expert parallelism (`BASELINE_PLAN`'s
+    heads, kv_heads, mlp, vocab and expert over ``model``): the rank
+    computes on its shard, the placement stays.  A dim that sanitisation
+    left whole is computed whole.
+    """
+    names = _names(sh.mesh)
+    return tuple(Replicate() if names[i] in plan.batch_axes else p
+                 for i, p in enumerate(sh.placements))
+
+
+def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan):
+    """The `TensorParallel` context of a step over these parameter
+    shardings, its ``dims`` by parameter name (the dim `compute_placements`
+    leaves split), or None when every parameter is computed whole.  One
+    mesh axis at most may carry such splits."""
+    dims: dict[str, int] = {}
+    axes: set[int] = set()
+    mesh = None
+    for name, sh in shardings.items():
+        for i, p in enumerate(compute_placements(sh, plan)):
+            if isinstance(p, Shard):
+                dims[name], mesh = p.dim, sh.mesh
+                axes.add(i)
+    if not dims:
+        return None
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"tensor-parallel compute over more than one mesh axis "
+            f"({[_names(mesh)[i] for i in sorted(axes)]}) under plan {plan.name}")
+    axis = _names(mesh)[axes.pop()]
+    return TensorParallel(group=mesh.get_group(axis).group_name,
+                          rank=mesh.get_local_rank(axis), size=axis_size(mesh, axis),
+                          dims=dims)
 
 
 def _axes_filter(mesh: DeviceMesh, axes: MeshAxes, used: set[str]) -> MeshAxes:

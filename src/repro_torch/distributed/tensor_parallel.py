@@ -1,0 +1,135 @@
+"""Tensor-parallel compute over the mesh's model axis: the context a step
+hands the model, and Megatron's four collectives as autograd functions.
+
+Every rank of the model axis holds the same activations (the batch is
+split over other axes); a weight the plan splits over the model axis is
+this rank's shard, and `TensorParallel.dim` names the dim it is split on.
+The model code then runs Megatron's layout:
+- a column product ``copy(x) @ w`` on the rank's columns: `copy` is the
+  identity forward and all-reduces the input's gradient backward;
+- a row product ``reduce(y @ w)`` on the rank's rows: `reduce`
+  all-reduces forward and passes the gradient through backward;
+- `gather` (all-gather forward, this rank's slice of the gradient
+  backward) and `split` (this rank's slice forward, all-gather of the
+  gradient backward), where an activation moves between a split and a
+  whole layout;
+- `max`, an all-reduce of a value that takes no gradient.
+
+So a weight no rank splits, used on every rank by the same computation,
+gets the same whole gradient on every rank, and a split weight's
+gradient is its shard's.  The collectives are the functional ones
+(``_c10d_functional``), each waited on at once: the dry run's
+`OpCounter` counts them, and under `torch.utils.checkpoint` the
+recomputed forward issues them again in the same order on every rank.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+__all__ = ["TensorParallel"]
+
+_ops = torch.ops._c10d_functional
+
+
+def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
+    return _ops.wait_tensor(_ops.all_reduce(x.contiguous(), op, group))
+
+
+def _all_gather(x: torch.Tensor, dim: int, size: int, group: str) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`, in rank order."""
+    y = _ops.all_gather_into_tensor(x.movedim(dim, 0).contiguous(), size, group)
+    return _ops.wait_tensor(y).movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    n = x.shape[dim] // size
+    return x.narrow(dim, rank * n, n).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.tp.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, "sum", tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _all_gather(x, dim, tp.size, tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.tp.rank, ctx.tp.size), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _slice(x, dim, tp.rank, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp.size, ctx.tp.group), None, None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorParallel:
+    """This rank's place on the model axis: the axis' process group
+    (its name), this rank's index on it and its size, and `dims`: for
+    each parameter (by name) the plan splits over the axis, the dim it
+    is split on.  `bind` ties the names to the tensors of one call, which
+    `dim` then reads."""
+
+    group: str
+    rank: int
+    size: int
+    dims: Mapping[str, int]
+    bound: Mapping[int, int] = dataclasses.field(default_factory=dict)
+
+    def bind(self, tensors: Mapping[str, torch.Tensor]) -> "TensorParallel":
+        """This context for the model's `tensors`, by parameter name."""
+        return dataclasses.replace(self, bound={
+            id(t): self.dims[n] for n, t in tensors.items() if n in self.dims})
+
+    def dim(self, w: torch.Tensor | None) -> int | None:
+        """The dim of `w` that is this rank's shard, None when `w` is whole."""
+        return None if w is None else self.bound.get(id(w))
+
+    def start(self, local: int) -> int:
+        """The global index of this rank's first of `local` rows of a split dim."""
+        return self.rank * local
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Gather.apply(x, dim % x.dim(), self)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Split.apply(x, dim % x.dim(), self)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return _all_reduce(x.detach(), "max", self.group)

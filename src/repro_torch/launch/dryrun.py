@@ -21,8 +21,12 @@ caches as `shard_train_state`, `shard_params`, `batch_shardings_for` and
 `input_specs` and `cache_specs` (no byte is allocated on any device),
 then runs ONE real call of the step under `analysis.roofline.OpCounter`.
 So the row measures the program the port runs on rank 0, not GSPMD's:
-while tensor-parallel compute is held by placement only (`launch.steps`),
-the step gathers every weight and computes on whole weights.
+the train and prefill steps compute on the rank's shards of the weights
+the plan splits over ``model`` (`launch.steps`: Megatron column and row
+products, vocab-parallel head and cross-entropy, expert-parallel MoE,
+their all-reduces and all-gathers counted), and gather at use only what
+is stored split over a batch axis; the serve step still gathers the
+weights and the caches.
 
 The row's keys are the reference's.  `memory`, in eager torch's terms
 (per device, bytes):
@@ -36,7 +40,7 @@ The row's keys are the reference's.  `memory`, in eager torch's terms
 - ``alias_bytes``: the part of those that are arguments updated in place
   (parameters and moments, caches);
 - ``temp_bytes``: the peak of live storage during the call beyond the
-  arguments (the gathered weights, activations, gradients), less the new
+  arguments (gathered weights, activations, gradients), less the new
   outputs;
 - ``total_per_device_gib``: (args + output + temp - alias) / 2**30, the
   reference's formula.

@@ -13,21 +13,35 @@ process group: every placement on one device is ``Replicate()``.
 
 On a mesh of more than one device (`shard_train_state`, `shard_params`
 place the state) every parameter is a DTensor with the plan's
-placements, every moment one with its ZeRO-1 placement (`zero1`: the
-first dim that ``data`` divides), and a batch leaf is split over the
-plan's batch axes (``Shard(0)``, or ``Shard(1)`` of [accum, micro, ...]).
-The step gathers the weights at use, as GSPMD gathers a weight stored
-sharded; each rank computes the loss of its own batch shard weighted by
+placements, every moment one with its ZeRO-1 placement (`_zero1`: the
+first dim that ``data`` divides; a per-layer leaf with no such dim keeps
+its moments stacked over the layers, [L, ...] split over ``data``, where
+``data`` divides L, as the reference's stacked leaf), and a batch leaf
+is split over the plan's batch axes (``Shard(0)``, or ``Shard(1)`` of
+[accum, micro, ...]).
+
+The train and prefill steps compute each weight as
+`sharding.compute_placements` says: a weight stored split over a batch
+axis is gathered at use, as GSPMD gathers a weight stored sharded
+(FSDP; the experts' hidden dim over ``data``); a weight split over the
+model axis stays this rank's shard, and the model computes on it
+(`distributed.tensor_parallel`: Megatron column and row products,
+vocab-parallel embedding, logits and cross-entropy, expert-parallel
+MoE).  Each rank computes the loss of its own batch shard weighted by
 its share of the global batch's supervised tokens (labels of -1 are
 ignored, so a mean of per-rank means is not the global mean), and the
 MoE load-balance term, a mean over dispatch groups, by its share of the
-groups (each rank must hold a whole number of them); the
-gradients are summed over the batch axes, so the global-norm clip sees
-all of them; the AdamW update runs on each moment's shard and the new
-weights go back to the plan's placements.  The tensor-parallel and
-sequence-parallel compute of the reference's plans (Megatron column and
-row products, the sharded KV cache in decode) is held by placement only:
-the values are the one-device step's, computed on gathered weights.
+groups (each rank must hold a whole number of them).  A gradient stays
+on its shard: it is summed over the batch axes into its moment's shard
+(a reduce-scatter); the global-norm clip adds each shard's square-sum
+once over the axes it is split on; the AdamW update runs on each
+moment's shard and the new weights go back to the plan's placements.
+The prefill returns its logits as a DTensor, batch over the batch axes
+and, where the vocab is split, vocab over the model axis.
+
+The serve step gathers the weights and the caches and decodes the whole
+batch on every rank: the sequence-parallel decode of `DECODE_PLAN` (the
+KV cache's sequence over ``model``) is held by placement only.
 """
 from __future__ import annotations
 
@@ -45,12 +59,14 @@ from ..distributed.sharding import (
     axis_size,
     batch_sharding,
     cache_sharding,
+    compute_placements,
     ssm_cache_sharding,
+    tensor_parallel,
     tree_shardings,
 )
 from ..models.model_zoo import Model
-from ..models.transformer import decay_mask
-from ..optim.adamw import AdamWConfig, OptState, apply_updates, global_norm, init_opt
+from ..models.transformer import LAYER_STACKS, decay_mask
+from ..optim.adamw import AdamWConfig, OptState, apply_updates, init_opt
 
 __all__ = [
     "StateShardings",
@@ -98,11 +114,16 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class StateShardings:
-    """Where a train state lives: each parameter's and each moment's
-    `Sharding` (mu and nu alike), by parameter name."""
+    """Where a train state lives: each parameter's `Sharding` by name;
+    each moment's (mu and nu alike) by the name of its entry in the
+    optimizer state: a parameter's, or a stack's key (``layers.ssm.A_log``,
+    the reference's name of the stacked leaf) whose moments hold the
+    per-layer parameters `stacks` names, in layer order, as one [L, ...]
+    tensor."""
 
     params: dict[str, Sharding]
     moments: dict[str, Sharding]
+    stacks: dict[str, tuple[str, ...]] = dataclasses.field(default_factory=dict)
 
 
 def init_train_state(
@@ -141,6 +162,37 @@ def _zero1(sh: Sharding, shape, dsize: int) -> Sharding:
             dims[i] = "data"
             return Sharding(sh.mesh, tuple(dims))
     return sh
+
+
+def _zero1_moments(model: Model, param_sh: dict, specs: dict, dsize: int):
+    """(each optimizer-state entry's sharding, the stacks): `_zero1` on
+    every parameter, except a per-layer leaf that takes no ``data`` on
+    its own dims where ``data`` divides the layer count: its moments are
+    stacked [L, ...] with ``data`` on the layer dim, as the reference's
+    ZeRO-1 shards its stacked leaf (only under ``scan_layers``)."""
+    moments = {n: _zero1(sh, specs[n].shape, dsize) for n, sh in param_sh.items()}
+    stacks: dict[str, list[str]] = {}
+    if model.cfg.scan_layers and dsize > 1:
+        for name in param_sh:
+            head, *rest = name.split(".")
+            if head in LAYER_STACKS:
+                stacks.setdefault(".".join([head] + rest[1:]), []).append(name)
+    out = {}
+    for key, names in stacks.items():
+        sh = param_sh[names[0]]
+        if (len(names) % dsize or moments[names[0]] is not sh
+                or "data" in _used_axes(sh.spec)):
+            continue
+        spec = ("data",) + tuple(sh.spec) + (None,) * (specs[names[0]].dim() - len(sh.spec))
+        for n in names:
+            del moments[n]
+        moments[key] = Sharding(sh.mesh, spec)
+        out[key] = tuple(names)
+    return moments, out
+
+
+def _used_axes(spec) -> set:
+    return {a for dim in spec for a in ((dim,) if isinstance(dim, str) else (dim or ()))}
 
 
 def batch_shardings_for(model: Model, mesh: DeviceMesh, plan: ShardingPlan,
@@ -191,12 +243,19 @@ def shard_params(module: nn.Module, param_sh: dict[str, Sharding]) -> nn.Module:
 
 
 def shard_train_state(state: TrainState, state_sh: StateShardings) -> TrainState:
-    """`state` on its mesh: the parameters and the moments as DTensors (a
-    one-device mesh leaves it as it is)."""
+    """`state` on its mesh: the parameters and the moments as DTensors,
+    the moments of each of `state_sh.stacks` stacked [L, ...] under its
+    key (a one-device mesh leaves it as it is)."""
     shard_params(state.params, state_sh.params)
     if all(sh.mesh.size() == 1 for sh in state_sh.moments.values()):
         return state
-    place = lambda d: {n: _distribute(t, state_sh.moments[n]) for n, t in d.items()}
+
+    def place(d):
+        d = dict(d)
+        for key, names in state_sh.stacks.items():
+            d[key] = torch.stack([d.pop(n) for n in names])
+        return {n: _distribute(t, state_sh.moments[n]) for n, t in d.items()}
+
     state.opt = state.opt._replace(mu=place(state.opt.mu), nu=place(state.opt.nu))
     return state
 
@@ -205,10 +264,10 @@ def shard_train_state(state: TrainState, state_sh: StateShardings) -> TrainState
 
 
 class _Gathered:
-    """A plain replica of the model on this rank's device whose weights
-    are the DTensors' full values, refreshed at every call (the
-    all-gather GSPMD inserts where a sharded weight is used).  Its meta
-    module is made when the step is built: `to_empty` cannot move a
+    """The serve step's model: a plain replica on this rank's device
+    whose weights are the DTensors' full values, refreshed at every call
+    (the all-gather GSPMD inserts where a sharded weight is used).  Its
+    meta module is made when the step is built: `to_empty` cannot move a
     module made under `FakeTensorMode` (the dry run's) onto a device."""
 
     def __init__(self, model: Model):
@@ -250,12 +309,6 @@ def _sum_over_batch(x: torch.Tensor, mesh: DeviceMesh, partial) -> torch.Tensor:
     return DTensor.from_local(x, mesh, partial).full_tensor()
 
 
-def _reshard(full: torch.Tensor, mesh: DeviceMesh, sh: Sharding) -> torch.Tensor:
-    """This rank's shard, under `sh`, of a tensor whole on every rank."""
-    return DTensor.from_local(full, mesh, (Replicate(),) * mesh.ndim).redistribute(
-        mesh, sh.placements).to_local()
-
-
 def _group_share(cfg, mb: dict, shards: int) -> float:
     """This rank's share of a microbatch's MoE dispatch groups (1/shards).
 
@@ -274,54 +327,128 @@ def _group_share(cfg, mb: dict, shards: int) -> float:
     return 1.0 / shards
 
 
+def _shifted(placements) -> tuple:
+    """Placements of a tensor stacked on a new leading dim."""
+    return tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p for p in placements)
+
+
+class _Local:
+    """The model to compute a sharded step with: a replica (its meta
+    module made when the step is built) whose parameters are, at each
+    call, this rank's tensors under `compute_placements` (gathered over
+    the batch axes a weight is stored split on, this rank's shard where
+    it is split over the model axis), and the step's `TensorParallel`
+    context bound to them."""
+
+    def __init__(self, model: Model, param_sh: dict, plan: ShardingPlan):
+        with torch.device("meta"):
+            self.meta = model.init(device="meta")
+        self.placements = {n: compute_placements(sh, plan) for n, sh in param_sh.items()}
+        self.tp = tensor_parallel(param_sh, plan)
+        self.slots = {n: n.rpartition(".") for n in param_sh}
+
+    @torch.no_grad()
+    def __call__(self, params: nn.Module, requires_grad: bool):
+        """(the module, its tensors by name, the bound context or None)."""
+        local = {}
+        for n, p in params.named_parameters():
+            t = p.redistribute(p.device_mesh, self.placements[n]).to_local()
+            t = t.detach().requires_grad_(requires_grad)
+            owner, _, leaf = self.slots[n]
+            self.meta.get_submodule(owner)._parameters[leaf] = local[n] = t
+        return self.meta, local, None if self.tp is None else self.tp.bind(local)
+
+
+def _grad_norm(grads: dict, moments: dict, mesh: DeviceMesh) -> torch.Tensor:
+    """The global norm of gradients held as their moments' shards: each
+    shard's square-sum, summed over the mesh axes its moment is split on
+    (once over each, whatever the replicas)."""
+    sums: dict[tuple, torch.Tensor] = {}
+    for n, g in grads.items():
+        axes = tuple(i for i, p in enumerate(moments[n].placements) if isinstance(p, Shard))
+        part = torch.sum(torch.square(g.float()))
+        sums[axes] = sums[axes] + part if axes in sums else part
+    total = []
+    for axes, part in sums.items():
+        for i in axes:
+            pl = tuple(Partial() if j == i else Replicate() for j in range(mesh.ndim))
+            part = DTensor.from_local(part, mesh, pl).full_tensor()
+        total.append(part)
+    return torch.sqrt(torch.sum(torch.stack(total)))
+
+
 def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, triangular):
-    replica = _Gathered(model)
+    local_model = _Local(model, state_sh.params, plan)
     leaves, partial = _batch_layout(mesh, plan, 1 if accum_steps > 1 else 0)
     shards = 1
     for i, p in enumerate(leaves):
         shards *= mesh.size(i) if isinstance(p, Shard) else 1
+    stacked = {n for names in state_sh.stacks.values() for n in names}
+
+    def summed(name):  # a gradient's placements: partial over the batch axes
+        return tuple(q if isinstance(q, Partial) else p
+                     for p, q in zip(local_model.placements[name], partial))
+
+    def to_moments(tensors: dict, placements) -> dict:
+        """Each tensor (this rank's under `placements(name)`) as its
+        moment entry's shard; a stack's layers stacked first."""
+        out = {n: DTensor.from_local(t, mesh, placements(n)).redistribute(
+            mesh, state_sh.moments[n].placements).to_local()
+            for n, t in tensors.items() if n not in stacked}
+        for key, names in state_sh.stacks.items():
+            t = torch.stack([tensors[n] for n in names])
+            out[key] = DTensor.from_local(t, mesh, _shifted(placements(names[0]))).redistribute(
+                mesh, state_sh.moments[key].placements).to_local()
+        return out
 
     def train_step(state: TrainState, batch: dict):
-        module = replica(state.params)
-        weights = list(module.parameters())
+        module, weights, tp = local_model(state.params, True)
+        names = list(weights)
         local = _local_batch(batch, mesh, leaves)
         micro = ([{k: v[i] for k, v in local.items()} for i in range(accum_steps)]
                  if accum_steps > 1 else [local])
-        loss = torch.zeros((), dtype=torch.float32, device=weights[0].device)
+        loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in weights]
+                 for p in weights.values()]
         for mb in micro:
             # this shard's share of the global means: over supervised
             # tokens for the cross-entropy, over dispatch groups for the
             # MoE aux
             count = (mb["labels"] >= 0).sum().to(torch.float32)
             share = count / _sum_over_batch(count, mesh, partial).clamp_min(1)
-            ce, aux = model.loss_parts(module, mb, triangular=triangular)
+            ce, aux = model.loss_parts(module, mb, triangular=triangular, tp=tp)
             part = ce * share
             if model.cfg.family == "moe" and model.cfg.n_experts:
                 part = part + aux * _group_share(model.cfg, mb, shards)
             loss = loss + part.detach()
-            grads = [a + g for a, g in zip(grads, torch.autograd.grad(part, weights))]
+            grads = [a + g for a, g in zip(
+                grads, torch.autograd.grad(part, list(weights.values())))]
         loss = _sum_over_batch(loss, mesh, partial) / accum_steps
-        names = [n for n, _ in module.named_parameters()]
-        full = {n: _sum_over_batch(g / accum_steps, mesh, partial)
-                for n, g in zip(names, grads)}
-        gnorm = global_norm(full)
         params = dict(state.params.named_parameters())
         with torch.no_grad():  # each moment's shard of the weights and gradients
-            shard = {n: _reshard(t.detach(), mesh, state_sh.moments[n])
-                     for n, t in module.named_parameters()}
-            grad_shard = {n: _reshard(g, mesh, state_sh.moments[n])
-                          for n, g in full.items()}
+            grad_shard = to_moments(
+                {n: g / accum_steps for n, g in zip(names, grads)}, summed)
+            shard = to_moments({n: p.to_local() for n, p in params.items()},
+                               lambda n: params[n].placements)
+        gnorm = _grad_norm(grad_shard, state_sh.moments, mesh)
         local_opt = OptState({n: m.to_local() for n, m in state.opt.mu.items()},
                              {n: v.to_local() for n, v in state.opt.nu.items()},
                              state.opt.count)
+        decay = decay_mask(state.params)
+        decay.update({key: decay[layers[0]] for key, layers in state_sh.stacks.items()})
         _, opt, om = apply_updates(opt_cfg, shard, grad_shard, local_opt,
-                                   decay_mask(state.params), grad_norm=gnorm)
-        with torch.no_grad():
-            for n, p in params.items():
-                new = DTensor.from_local(shard[n], mesh, state_sh.moments[n].placements)
-                p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+                                   decay, grad_norm=gnorm)
+        with torch.no_grad():  # the new weights back to the plan's placements
+            for n, t in shard.items():
+                new = DTensor.from_local(t, mesh, state_sh.moments[n].placements)
+                layers = state_sh.stacks.get(n)
+                if layers is None:
+                    params[n].to_local().copy_(
+                        new.redistribute(mesh, params[n].placements).to_local())
+                    continue
+                new = new.redistribute(mesh, _shifted(params[layers[0]].placements))
+                for layer, value in zip(layers, new.to_local()):
+                    params[layer].to_local().copy_(value)
         opt = state.opt._replace(count=opt.count)
         metrics = {"loss": loss, **om}
         return TrainState(params=state.params, opt=opt, step=state.step + 1), metrics
@@ -354,11 +481,10 @@ def build_train_step(
     """
     opt_cfg = opt_cfg or AdamWConfig()
     param_sh, specs = _param_shardings(model, mesh, plan)
-    moments = param_sh
+    moments, stacks = param_sh, {}
     if zero1 and "data" in (mesh.mesh_dim_names or ()):
-        dsize = axis_size(mesh, "data")
-        moments = {n: _zero1(sh, specs[n].shape, dsize) for n, sh in param_sh.items()}
-    state_sh = StateShardings(params=param_sh, moments=moments)
+        moments, stacks = _zero1_moments(model, param_sh, specs, axis_size(mesh, "data"))
+    state_sh = StateShardings(params=param_sh, moments=moments, stacks=stacks)
     if mesh.size() > 1:
         return _sharded_train_step(model, mesh, plan, opt_cfg, state_sh,
                                    accum_steps, triangular), state_sh
@@ -397,7 +523,8 @@ def build_prefill_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, *,
                        triangular: bool = False):
     """``(prefill, param_sh)``: ``prefill(module, batch) -> logits`` (the
     full-sequence forward).  On a mesh of more than one device the logits
-    are a DTensor split over the batch axes, as the batch."""
+    are a DTensor split over the batch axes, as the batch, and over the
+    model axis on the vocab where the plan splits the vocab there."""
     param_sh, _ = _param_shardings(model, mesh, plan)
     if mesh.size() == 1:
         @torch.inference_mode()
@@ -406,14 +533,17 @@ def build_prefill_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, *,
 
         return prefill, param_sh
 
-    replica = _Gathered(model)
+    local_model = _Local(model, param_sh, plan)
     leaves, _ = _batch_layout(mesh, plan, 0)
+    vocab = compute_placements(param_sh["embed"], plan)
 
     @torch.inference_mode()
     def sharded_prefill(module: nn.Module, batch: dict):
-        logits = model.forward(replica(module), _local_batch(batch, mesh, leaves),
-                               triangular=triangular)
-        return DTensor.from_local(logits, mesh, leaves)
+        local, _, tp = local_model(module, False)
+        logits = model.forward(local, _local_batch(batch, mesh, leaves),
+                               triangular=triangular, tp=tp)
+        out = tuple(Shard(2) if isinstance(v, Shard) else b for b, v in zip(leaves, vocab))
+        return DTensor.from_local(logits, mesh, out)
 
     return sharded_prefill, param_sh
 

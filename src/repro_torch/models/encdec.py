@@ -45,6 +45,7 @@ from .layers import (
     lm_logits,
     mlp_axes,
     norm_axes,
+    vocab_parallel,
 )
 from .transformer import (
     MLP,
@@ -54,6 +55,7 @@ from .transformer import (
     check_device,
     flat_axes,
     torch_dtype,
+    tp_attention,
 )
 
 __all__ = [
@@ -118,12 +120,16 @@ class EncoderLayer(nn.Module):
                 _split_heads(h @ a.wk, cfg.n_kv_heads, cfg.head_dim),
                 _split_heads(h @ a.wv, cfg.n_kv_heads, cfg.head_dim))
 
-    def _mlp(self, x):
+    def _mlp(self, x, tp=None):
         """x plus its MLP."""
-        return x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act)
+        return x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act, tp)
 
-    def forward(self, x):
+    def forward(self, x, tp=None):
         b, t, _ = x.shape
+        if tp is not None:
+            h = self.attn_norm(x)
+            return self._mlp(x + tp_attention(tp, self.cfg, self.attn, h, h,
+                                              full_cross_attention), tp)
         out = full_cross_attention(*self._qkv(x))
         return self._mlp(x + out.reshape(b, t, self.cfg.q_dim) @ self.attn.wo)
 
@@ -150,14 +156,23 @@ class DecoderLayer(EncoderLayer):
         q = _split_heads(self.cross_norm(x) @ self.cross.wq, cfg.n_heads, cfg.head_dim)
         return x + full_cross_attention(q, ek, ev).reshape(b, s, cfg.q_dim) @ self.cross.wo
 
-    def forward(self, x, enc_out, triangular: bool = False):
+    def forward(self, x, enc_out, triangular: bool = False, tp=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        attn = chunked_causal_attention(
-            *self._qkv(x), q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-            triangular=triangular,
-        )
-        x = x + attn.reshape(b, s, cfg.q_dim) @ self.attn.wo
+
+        def causal(q, k, v):
+            return chunked_causal_attention(
+                q, k, v, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                triangular=triangular,
+            )
+
+        if tp is not None:
+            h = self.attn_norm(x)
+            x = x + tp_attention(tp, cfg, self.attn, h, h, causal)
+            x = x + tp_attention(tp, cfg, self.cross, self.cross_norm(x), enc_out,
+                                 full_cross_attention)
+            return self._mlp(x, tp)
+        x = x + causal(*self._qkv(x)).reshape(b, s, cfg.q_dim) @ self.attn.wo
         return self._mlp(self._cross(x, *self.cross_kv(enc_out)))
 
     def decode(self, x_tok, layer_cache, index: int):
@@ -203,31 +218,33 @@ class EncDecLM(nn.Module):
             return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
         return layer(*args)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, tp=None) -> torch.Tensor:
         """frames [B, T_enc, D] (stub embeddings) -> encoder states."""
         cd = torch_dtype(self.cfg.compute_dtype)
         _, t, d = frames.shape
         x = frames.to(cd) + sinusoidal_positions(t, d, frames.device).to(cd)[None]
         for layer in self.enc_layers:
-            x = self._layer(layer, x)
+            x = self._layer(layer, x, tp)
         return self.enc_final_norm(x)
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
-                triangular: bool = False) -> torch.Tensor:
-        """Teacher-forced decoder logits [B, S, Vpad] (f32)."""
+                triangular: bool = False, tp=None) -> torch.Tensor:
+        """Teacher-forced decoder logits [B, S, Vpad] (f32; this rank's
+        vocab columns under a vocab-split `TensorParallel` `tp`)."""
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
-        enc_out = self.encode(frames)
-        x = embed_tokens(self.embed, tokens, cd)
+        enc_out = self.encode(frames, tp)
+        x = embed_tokens(self.embed, tokens, cd, tp)
         x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device).to(cd)[None]
         for layer in self.dec_layers:
-            x = self._layer(layer, x, enc_out, triangular)
+            x = self._layer(layer, x, enc_out, triangular, tp)
         x = self.dec_final_norm(x)
-        return lm_logits(x, self.embed, None, cfg.vocab_size)
+        return lm_logits(x, self.embed, None, cfg.vocab_size, tp)
 
 
-def encdec_loss(model: EncDecLM, frames, tokens, labels, *, triangular=False):
-    return cross_entropy_loss(model(frames, tokens, triangular=triangular), labels)
+def encdec_loss(model: EncDecLM, frames, tokens, labels, *, triangular=False, tp=None):
+    logits = model(frames, tokens, triangular=triangular, tp=tp)
+    return cross_entropy_loss(logits, labels, vocab_parallel(model.embed, None, tp))
 
 
 @torch.no_grad()

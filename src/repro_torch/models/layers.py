@@ -27,6 +27,7 @@ __all__ = [
     "mlp_shapes",
     "norm_axes",
     "rope_frequencies",
+    "vocab_parallel",
 ]
 
 # ---------------------------------------------------------------------------
@@ -143,14 +144,26 @@ def mlp_axes(act: str) -> dict:
     }
 
 
-def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     """`p` holds the weights of `mlp_shapes` as attributes.  GELU is the
-    tanh approximation, `jax.nn.gelu`'s default."""
+    tanh approximation, `jax.nn.gelu`'s default.
+
+    With a `TensorParallel` context `tp` whose rank holds a shard of the
+    hidden dim, the input products are column products on that shard
+    (``bi`` with them), ``wo`` a row product whose partial sums are
+    all-reduced, and ``bo`` is added once, after the all-reduce."""
+    if tp is None or tp.dim(p.wo) is None:
+        if act == "swiglu":
+            return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
+        if act == "geglu":
+            return (F.gelu(x @ p.wi_gate, approximate="tanh") * (x @ p.wi_up)) @ p.wo
+        return F.gelu(x @ p.wi + p.bi, approximate="tanh") @ p.wo + p.bo
+    x = tp.copy(x)
     if act == "swiglu":
-        return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
+        return tp.reduce((F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo)
     if act == "geglu":
-        return (F.gelu(x @ p.wi_gate, approximate="tanh") * (x @ p.wi_up)) @ p.wo
-    return F.gelu(x @ p.wi + p.bi, approximate="tanh") @ p.wo + p.bo
+        return tp.reduce((F.gelu(x @ p.wi_gate, approximate="tanh") * (x @ p.wi_up)) @ p.wo)
+    return tp.reduce(F.gelu(x @ p.wi + p.bi, approximate="tanh") @ p.wo) + p.bo
 
 
 # ---------------------------------------------------------------------------
@@ -158,32 +171,72 @@ def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return F.embedding(tokens, emb.to(compute_dtype))
+def vocab_parallel(emb: torch.Tensor, head: torch.Tensor | None, tp):
+    """`tp` when this rank holds a shard of the vocab (of the head, or of
+    the embedding that doubles as it), else None."""
+    return tp if tp is not None and tp.dim(emb if head is None else head) is not None else None
+
+
+def _local_ids(ids: torch.Tensor, rows: int, tp):
+    """(ids as rows of this rank's `rows`-row vocab shard, clamped into
+    it; whether each id falls in the shard)."""
+    local = ids.long() - tp.start(rows)
+    inside = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), inside
+
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, compute_dtype,
+                 tp=None) -> torch.Tensor:
+    """The tokens' rows of `emb`.  With `tp` and `emb` split over the
+    vocab, each rank looks up the ids of its rows, zeros the others, and
+    the ranks' rows are all-reduced (a sum of one row and exact zeros)."""
+    if tp is None or tp.dim(emb) is None:
+        return F.embedding(tokens, emb.to(compute_dtype))
+    local, inside = _local_ids(tokens, emb.shape[0], tp)
+    x = F.embedding(local, emb.to(compute_dtype))
+    return tp.reduce(torch.where(inside[..., None], x, 0))
 
 
 def lm_logits(
-    x: torch.Tensor, emb: torch.Tensor, head: torch.Tensor | None, vocab_size: int
+    x: torch.Tensor, emb: torch.Tensor, head: torch.Tensor | None, vocab_size: int,
+    tp=None,
 ) -> torch.Tensor:
-    """Final logits in f32; padded vocab columns are masked to -1e9."""
+    """Final logits in f32; padded vocab columns are masked to -1e9.
+    With `tp` and the vocab split, the logits of this rank's vocab
+    columns (a column product), the padding masked by global column."""
     w = emb.t() if head is None else head
+    tp = vocab_parallel(emb, head, tp)
+    if tp is not None:
+        x = tp.copy(x)
     logits = (x @ w.to(x.dtype)).float()
-    vpad = logits.shape[-1]
-    if vpad > vocab_size:
-        col = torch.arange(vpad, device=logits.device)
+    cols = logits.shape[-1]
+    first = 0 if tp is None else tp.start(cols)
+    if first + cols > vocab_size:
+        col = first + torch.arange(cols, device=logits.device)
         logits = torch.where(col < vocab_size, logits, -1e9)
     return logits
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       tp=None) -> torch.Tensor:
     """Mean token cross-entropy; ignores label == -1.
 
     The gold logit is a gather: the reference's equality-mask contraction
     adds exact zeros to it, so both give the same value and gradient.
+    With `tp`, `logits` are this rank's vocab columns (`lm_logits`): the
+    max, the sum of exponentials and the gold logit are all-reduced over
+    the model axis, so every rank gets the whole loss.
     """
     mask = labels >= 0
     safe = labels.clamp_min(0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None].long()).squeeze(-1)
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None].long()).squeeze(-1)
+    else:
+        top = tp.max(logits.amax(dim=-1))
+        logz = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(-1)))
+        local, inside = _local_ids(safe, logits.shape[-1], tp)
+        gold = logits.gather(-1, local[..., None]).squeeze(-1)
+        gold = tp.reduce(torch.where(inside, gold, 0.0))
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1)

@@ -3,8 +3,8 @@
   init(generator=None, device="cuda") -> the module (the parameters):
                                           TransformerLM, or EncDecLM for encdec
   loss(module, batch, triangular=False)   -> scalar     (train objective)
-  loss_parts(module, batch, triangular=False) -> (ce, aux), loss = ce + aux
-  forward(module, batch, triangular=False) -> logits    (prefill compute)
+  loss_parts(module, batch, triangular=False, tp=None) -> (ce, aux), loss = ce + aux
+  forward(module, batch, triangular=False, tp=None) -> logits    (prefill compute)
   decode_step(module, caches, tokens, index, seq_len) -> (logits, caches)
   init_caches(module, batch, seq_len, device=None, frames=None) -> caches
   input_specs(shape)                 -> batch of meta tensors
@@ -19,6 +19,12 @@ hybrid, vlm and encdec.  For encdec, `init_caches` runs the encoder
 over `frames` (zeros [B, max(seq_len // enc_seq_divisor, 1), D] in the
 compute dtype when none are given); the other families ignore them.
 ``index`` of `decode_step` is a Python int.
+
+`tp` of `loss_parts` and `forward` is a step's
+`distributed.tensor_parallel.TensorParallel` context: the module's
+weights are then this rank's shards where the plan splits them over the
+model axis, and the logits this rank's vocab columns where it splits
+the vocab (None: the plain model).
 
 `input_specs` and `cache_specs` give a `ShapeConfig`'s batch and caches
 as tensors on the ``meta`` device (shape and dtype, no storage: the
@@ -135,12 +141,13 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return encdec.encdec_loss(module, batch["frames"], batch["tokens"],
                                   batch["labels"], triangular=triangular)
 
-    def loss_parts(module, batch, *, triangular=False):
-        ce = loss(module, batch, triangular=triangular)
+    def loss_parts(module, batch, *, triangular=False, tp=None):
+        ce = encdec.encdec_loss(module, batch["frames"], batch["tokens"],
+                                batch["labels"], triangular=triangular, tp=tp)
         return ce, torch.zeros((), dtype=torch.float32, device=ce.device)
 
-    def forward(module, batch, *, triangular=False):
-        return module(batch["frames"], batch["tokens"], triangular=triangular)
+    def forward(module, batch, *, triangular=False, tp=None):
+        return module(batch["frames"], batch["tokens"], triangular=triangular, tp=tp)
 
     def decode_step(module, caches, tokens, index: int, seq_len: int):
         return encdec.decode_step_encdec(module, caches, tokens, index)
@@ -167,18 +174,18 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(generator=None, device="cuda"):
         return tfm.TransformerLM(cfg, device=device, generator=generator)
 
-    def loss_parts(module, batch, *, triangular=False):
+    def loss_parts(module, batch, *, triangular=False, tp=None):
         return tfm.lm_loss_parts(module, batch["tokens"], batch["labels"],
                                  frontend_embeds=batch.get("frontend_embeds"),
-                                 triangular=triangular)
+                                 triangular=triangular, tp=tp)
 
     def loss(module, batch, *, triangular=False):
         ce, aux = loss_parts(module, batch, triangular=triangular)
         return ce + aux
 
-    def forward(module, batch, *, triangular=False):
+    def forward(module, batch, *, triangular=False, tp=None):
         return module(batch["tokens"], frontend_embeds=batch.get("frontend_embeds"),
-                      triangular=triangular)
+                      triangular=triangular, tp=tp)
 
     def decode_step(module, caches, tokens, index: int, seq_len: int):
         return tfm.decode_step_lm(module, caches, tokens, index, seq_len)

@@ -40,8 +40,8 @@ class MoE(nn.Module):
         self.wi_up = nn.Parameter(dense_init(generator, (e, d, f), dtype, device))
         self.wo = nn.Parameter(dense_init(generator, (e, f, d), dtype, device))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return apply_moe(self, x, self.cfg)
+    def forward(self, x: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+        return apply_moe(self, x, self.cfg, tp)
 
 
 def moe_axes() -> dict:
@@ -69,8 +69,13 @@ def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return probs[..., :k], idx[..., :k]
 
 
-def _group(p: MoE, xg: torch.Tensor, cfg, cap: int):
-    """One dispatch group. xg: [g, D] -> (y [g, D], aux [])."""
+def _group(p: MoE, xg: torch.Tensor, cfg, cap: int, tp=None):
+    """One dispatch group. xg: [g, D] -> (y [g, D], aux []).
+
+    With `tp` and the experts split over the model axis, the router and
+    the routing stay whole (the same on every rank); the dispatch and the
+    expert products run on this rank's experts, and the combine, a
+    contraction over the experts, is a partial sum all-reduced."""
     g = xg.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     gates = torch.softmax(xg.float() @ p.router, dim=-1)           # [g, E]
@@ -90,11 +95,20 @@ def _group(p: MoE, xg: torch.Tensor, cfg, cap: int):
         dispatch = dispatch + disp
         combine = combine + disp * probs[:, slot][:, None, None]
     cd = xg.dtype
-    xe = torch.einsum("tec,td->ecd", dispatch.to(cd), xg)           # [E,cap,D]
+    split = tp is not None and tp.dim(p.wo) == 0
+    xin = xg
+    if split:  # this rank's experts
+        local = p.wo.shape[0]
+        dispatch = dispatch[:, tp.start(local):tp.start(local) + local]
+        combine = tp.split(combine, 1)
+        xin = tp.copy(xg)
+    xe = torch.einsum("tec,td->ecd", dispatch.to(cd), xin)          # [E,cap,D]
     hg = F.silu(torch.einsum("ecd,edf->ecf", xe, p.wi_gate))
     hu = torch.einsum("ecd,edf->ecf", xe, p.wi_up)
     ye = torch.einsum("ecf,efd->ecd", hg * hu, p.wo)                # [E,cap,D]
     y = torch.einsum("tec,ecd->td", combine.to(cd), ye)             # [g, D]
+    if split:
+        y = tp.reduce(y)
     # load-balance aux: mean gate prob per expert x fraction routed
     route_frac = F.one_hot(idx[:, 0], e).float().mean(dim=0)
     aux = (gates.mean(dim=0) * route_frac).sum() * e
@@ -122,17 +136,18 @@ def dropped(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     return (per_expert - cap).clamp_min(0).sum()
 
 
-def apply_moe(p: MoE, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(p: MoE, x: torch.Tensor, cfg, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux_loss []).
 
     aux_loss is the standard load-balancing loss (mean gate fraction x
     mean routed fraction x E), averaged over the groups.  When B*S is no
     multiple of the group size the last group is padded with zero rows,
-    which take slots and enter the aux loss, as in the reference.
+    which take slots and enter the aux loss, as in the reference.  `tp`:
+    expert parallelism over the model axis (`_group`).
     """
     b, s, d = x.shape
     xg, cap = _groups(x, cfg)
-    outs = [_group(p, group, cfg, cap) for group in xg]
+    outs = [_group(p, group, cfg, cap, tp) for group in xg]
     y = torch.cat([o[0] for o in outs])[:b * s].reshape(b, s, d)
     aux = torch.stack([o[1] for o in outs]).mean()
     return y, aux

@@ -79,9 +79,13 @@ def _split_proj(cfg, zxbcdt):
     return torch.split(zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
 
 
-def _gated_norm(p, y, z):
+def _gated_norm(p, y, z, tp=None):
+    """The gated RMS norm over d_inner; with `tp` and the scale split,
+    this rank's slice of it (the norm itself is over the whole dim)."""
     yf = y.float() * F.silu(z.float())
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+    if tp is not None and tp.dim(p.gate_norm_scale) is not None:
+        yf = tp.split(yf, -1)
     return yf * p.gate_norm_scale.float()
 
 
@@ -95,18 +99,34 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def apply_ssm(p: SSM, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence SSD. x: [B, S, D] -> [B, S, D]."""
+def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """Full-sequence SSD. x: [B, S, D] -> [B, S, D].
+
+    With `tp`, each weight the model axis splits is computed on this
+    rank's shard: ``in_proj`` a column product whose output is gathered
+    whole before the z/x/B/C/dt split (whose boundaries need not fall on
+    the shard's), the depthwise conv on this rank's channels, gathered,
+    and ``out_proj`` a row product on this rank's slice of the gated
+    norm, all-reduced.  The scan runs whole on every rank.
+    """
     b, s, d = x.shape
     d_inner, h, hp, n, conv_dim = _dims(cfg)
     q = min(cfg.ssm_chunk, s)
     assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
     nc = s // q
+    split = lambda w: tp is not None and tp.dim(w) is not None
 
-    zxbcdt = x @ p.in_proj
+    if split(p.in_proj):
+        zxbcdt = tp.gather(tp.copy(x) @ p.in_proj, -1)
+    else:
+        zxbcdt = x @ p.in_proj
     z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xc, b_, c_], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b).float())
+    if split(p.conv_w):
+        conv_out = tp.gather(F.silu(_causal_conv(
+            tp.split(conv_in, -1), p.conv_w, p.conv_b).float()), -1)
+    else:
+        conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b).float())
     xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
     a = -torch.exp(p.A_log)                                         # [H]
@@ -146,7 +166,9 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg) -> torch.Tensor:
 
     y = (y_intra + y_inter).reshape(b, s, h, hp)
     y = y + p.D[None, None, :, None] * xh.float()
-    y = _gated_norm(p, y.reshape(b, s, d_inner), z)
+    y = _gated_norm(p, y.reshape(b, s, d_inner), z, tp)
+    if split(p.out_proj):
+        return tp.reduce(y.to(x.dtype) @ p.out_proj)
     return y.to(x.dtype) @ p.out_proj
 
 

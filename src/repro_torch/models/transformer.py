@@ -62,6 +62,7 @@ from .layers import (
     mlp_axes,
     mlp_shapes,
     norm_axes,
+    vocab_parallel,
 )
 
 __all__ = [
@@ -78,6 +79,7 @@ __all__ = [
     "lm_loss",
     "lm_loss_parts",
     "params_from_jax",
+    "tp_attention",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -193,22 +195,29 @@ class Block(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attention(self, x, positions, triangular):
+    def _attention(self, x, positions, triangular, tp=None):
         cfg = self.cfg
         b, s, _ = x.shape
+
+        def core(q, k, v):
+            return chunked_causal_attention(
+                q,
+                k,
+                v,
+                q_chunk=cfg.attn_q_chunk,
+                kv_chunk=cfg.attn_kv_chunk,
+                window=cfg.window if cfg.attention == "sliding" else None,
+                triangular=triangular,
+                cast_f32=cfg.attn_cast_f32,
+                remat_qblock=cfg.attn_remat,
+            )
+
+        if tp is not None:
+            h = self.attn_norm(x)
+            return tp_attention(tp, cfg, self.attn, h, h, core, bias=cfg.qkv_bias,
+                                rope=lambda t: apply_rope(t, positions, cfg.rope_theta))
         q, k, v = self._qkv(x, positions)
-        out = chunked_causal_attention(
-            q,
-            k,
-            v,
-            q_chunk=cfg.attn_q_chunk,
-            kv_chunk=cfg.attn_kv_chunk,
-            window=cfg.window if cfg.attention == "sliding" else None,
-            triangular=triangular,
-            cast_f32=cfg.attn_cast_f32,
-            remat_qblock=cfg.attn_remat,
-        )
-        return out.reshape(b, s, cfg.q_dim) @ self.attn.wo
+        return core(q, k, v).reshape(b, s, cfg.q_dim) @ self.attn.wo
 
     def _attention_decode(self, x_tok, layer_cache, pos, index, cache_len):
         """x_tok: [B, 1, D] at absolute position `index` (`pos` holds it
@@ -240,29 +249,30 @@ class Block(nn.Module):
         """The hybrid's parallel-head average."""
         return 0.5 * (self.attn_out_norm(attn_out) + self.ssm_out_norm(ssm_out))
 
-    def _feed_forward(self, x):
+    def _feed_forward(self, x, tp=None):
         """The expert block or the MLP: (x, aux), aux None without experts."""
         aux = None
         if _has_moe(self.cfg):
-            y, aux = self.moe(self.moe_norm(x))
+            y, aux = self.moe(self.moe_norm(x), tp)
             x = x + y
         if _has_mlp(self.cfg):
-            x = x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act)
+            x = x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act, tp)
         return x, aux
 
-    def forward(self, x, positions, triangular: bool = False):
-        """One layer. Returns (x, aux or None)."""
+    def forward(self, x, positions, triangular: bool = False, tp=None):
+        """One layer. Returns (x, aux or None).  `tp`: this rank's
+        `TensorParallel` context, None for the plain layer."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            attn_out = self._attention(x, positions, triangular)
-            ssm_out = ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg)
+            attn_out = self._attention(x, positions, triangular, tp)
+            ssm_out = ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
             x = x + self._mix(attn_out, ssm_out)
         else:
             if _has_attention(cfg):
-                x = x + self._attention(x, positions, triangular)
+                x = x + self._attention(x, positions, triangular, tp)
             if _has_ssm(cfg):
-                x = x + ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg)
-        return self._feed_forward(x)
+                x = x + ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
+        return self._feed_forward(x, tp)
 
     def decode(self, x_tok, layer_cache, pos, index: int, cache_len: int):
         """One layer of one decode step; the layer's caches (views into
@@ -279,6 +289,95 @@ class Block(nn.Module):
             if _has_ssm(cfg):
                 x_tok = x_tok + self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
         return self._feed_forward(x_tok)[0]
+
+
+def _product(x, w, b):
+    y = x @ w
+    return y if b is None else y + b
+
+
+def _columns(tp, w, b, part: slice):
+    """Columns `part` of a weight (and its bias) every rank holds whole,
+    through `copy`: the ranks' gradients of their slices are all-reduced."""
+    return tp.copy(w)[:, part], None if b is None else tp.copy(b)[part]
+
+
+def _gathered_product(tp, x, xc, w, b):
+    """``x @ w (+ b)`` whole on every rank: a column product on this
+    rank's shard of `w`, or on its slice of the columns of a whole `w`,
+    all-gathered; computed whole where the columns do not divide the
+    axis.  `xc` is ``tp.copy(x)``."""
+    if tp.dim(w) is None:
+        n = w.shape[-1] // tp.size
+        if w.shape[-1] % tp.size:
+            return _product(x, w, b)
+        w, b = _columns(tp, w, b, slice(tp.start(n), tp.start(n) + n))
+    return tp.gather(_product(xc, w, b), -1)
+
+
+def _split_core(tp, core, q, k, v):
+    """`core` on this rank's share of the (batch, kv head) groups, the
+    groups' outputs all-gathered; whole where the axis does not divide
+    their count."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    if (b * n_kv) % tp.size:
+        return core(q, k, v)
+    g = h // n_kv
+    q = q.reshape(b, s, n_kv, g, d).transpose(1, 2).reshape(b * n_kv, s, g, d)
+    k, v = (t.transpose(1, 2).reshape(b * n_kv, t.shape[1], 1, d) for t in (k, v))
+    out = tp.gather(core(tp.split(q, 0), tp.split(k, 0), tp.split(v, 0)), 0)
+    return out.reshape(b, n_kv, s, g, d).transpose(1, 2).reshape(b, s, h, d)
+
+
+def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None):
+    """An attention layer's projections, `core` and output product on this
+    rank of the model axis (`TensorParallel` `tp`): queries from `h`, keys
+    and values from `h_kv` ([B, S, D] each, normed), ``a`` the layer's
+    `Attention` weights (its qkv biases read where `bias`), `rope` a
+    rotation of [B, S, heads, D] or None.  Returns [B, S, D], after the
+    all-reduce of the ``wo`` row product.
+
+    Megatron heads where the query heads divide the axis: the rank's
+    query heads from its shard of ``wq``, the key/value heads they read
+    from its shard of ``wk``/``wv`` (or, where those are whole, from the
+    slice of their columns that holds those heads), attention on those
+    heads, ``wo`` a row product.  Otherwise (a head split across ranks):
+    each projection a column product, gathered whole, the attention split
+    over (batch, kv head) groups, ``wo`` a row product on this rank's
+    slice of its input.
+    """
+    b, s, _ = h.shape
+    hd, m, r = cfg.head_dim, tp.size, tp.rank
+    g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // m
+    xq = tp.copy(h)
+    xkv = xq if h_kv is h else tp.copy(h_kv)
+    bq, bk, bv = (a.bq, a.bk, a.bv) if bias else (None, None, None)
+    kv_split = tp.dim(a.wk) is not None
+    heads = (tp.dim(a.wq) is not None and tp.dim(a.wo) is not None and cfg.n_heads % m == 0
+             and (cfg.n_kv_heads % m == 0 if kv_split else hl % g == 0 or g % hl == 0))
+    if heads:
+        q = _product(xq, a.wq, bq)
+        if kv_split:
+            k, v = _product(xkv, a.wk, bk), _product(xkv, a.wv, bv)
+        else:  # the kv heads this rank's query heads read
+            part = slice(r * hl // g * hd, (((r + 1) * hl - 1) // g + 1) * hd)
+            k, v = (_product(xkv, *_columns(tp, w, b_, part))
+                    for w, b_ in ((a.wk, bk), (a.wv, bv)))
+    else:
+        q = _gathered_product(tp, h, xq, a.wq, bq)
+        k = _gathered_product(tp, h_kv, xkv, a.wk, bk)
+        v = _gathered_product(tp, h_kv, xkv, a.wv, bv)
+    q = q.reshape(b, s, -1, hd)
+    k, v = (t.reshape(b, h_kv.shape[1], -1, hd) for t in (k, v))
+    if rope is not None:
+        q, k = rope(q), rope(k)
+    if heads:
+        return tp.reduce(core(q, k, v).reshape(b, s, -1) @ a.wo)
+    out = _split_core(tp, core, q, k, v).reshape(b, s, -1)
+    if tp.dim(a.wo) is not None:
+        return tp.reduce(tp.split(out, -1) @ a.wo)
+    return out @ a.wo
 
 
 def attn_axes(cfg) -> dict:
@@ -378,34 +477,40 @@ class TransformerLM(nn.Module):
         *,
         frontend_embeds: torch.Tensor | None = None,
         triangular: bool = False,
+        tp=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens: [B, S_text] -> (logits [B, S, Vpad] f32, moe aux loss []).
 
         For vlm, frontend_embeds [B, P, D] are prepended and S = P + S_text.
+        `tp` is this rank's `TensorParallel` context on a mesh that splits
+        weights over its model axis (None: the plain model); the layers'
+        collectives sit inside the remat checkpoint, so its recompute
+        issues them again, in the same order on every rank.
         """
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
-        x = embed_tokens(self.embed, tokens, cd)
+        x = embed_tokens(self.embed, tokens, cd, tp)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(cd), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if cfg.remat:
-                x, a = checkpoint(layer, x, positions, triangular,
+                x, a = checkpoint(layer, x, positions, triangular, tp,
                                   use_reentrant=False, preserve_rng_state=False)
             else:
-                x, a = layer(x, positions, triangular)
+                x, a = layer(x, positions, triangular, tp)
             if a is not None:
                 aux = aux + a
         x = self.final_norm(x)
-        return lm_logits(x, self.embed, self.head, cfg.vocab_size), aux
+        return lm_logits(x, self.embed, self.head, cfg.vocab_size, tp), aux
 
     def forward(self, tokens: torch.Tensor, *, frontend_embeds=None,
-                triangular: bool = False) -> torch.Tensor:
-        """tokens: [B, S_text] -> logits [B, S, Vpad] f32."""
+                triangular: bool = False, tp=None) -> torch.Tensor:
+        """tokens: [B, S_text] -> logits [B, S, Vpad] f32 (this rank's
+        vocab columns under a vocab-split `tp`)."""
         return self.forward_lm(tokens, frontend_embeds=frontend_embeds,
-                               triangular=triangular)[0]
+                               triangular=triangular, tp=tp)[0]
 
 
 def lm_loss_parts(
@@ -416,16 +521,19 @@ def lm_loss_parts(
     frontend_embeds: torch.Tensor | None = None,
     moe_aux_weight: float = 0.01,
     triangular: bool = False,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cross-entropy, weighted MoE aux) whose sum is `lm_loss`: the
     first a mean over supervised tokens, the second over dispatch groups
-    (zero without experts)."""
+    (zero without experts); under `tp` the cross-entropy is
+    vocab-parallel where the vocab is split."""
     logits, aux = model.forward_lm(
-        tokens, frontend_embeds=frontend_embeds, triangular=triangular)
+        tokens, frontend_embeds=frontend_embeds, triangular=triangular, tp=tp)
     if frontend_embeds is not None:
         # labels only cover text positions; patch positions are unsupervised
         logits = logits[:, frontend_embeds.shape[1]:, :]
-    return cross_entropy_loss(logits, labels), moe_aux_weight * aux
+    ce = cross_entropy_loss(logits, labels, vocab_parallel(model.embed, model.head, tp))
+    return ce, moe_aux_weight * aux
 
 
 def lm_loss(

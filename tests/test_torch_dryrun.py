@@ -9,17 +9,18 @@ on the CPU.
   `model_flops_global`; `args_bytes` equal but for the leaves named in
   `_ARG_LEAVES`.  FLOPs, bytes and collectives are recorded beside the
   reference's, not held equal: the programs differ.
-- Per-device counts on a fake (16, 16) mesh, exact: under `DP_ALL_PLAN`
-  x 256 the one-device step's at the same global batch, under
-  `BASELINE_PLAN` (weights gathered, whole-weight compute) the one-device
-  step's at batch B / 16; `args_bytes` against the local shards summed
-  from `tree_shardings`; a dense config, and a MoE one under
-  `BASELINE_PLAN` (under `DP_ALL_PLAN` its one-device step would run 256
-  dispatch groups a layer).
+- Per-device counts on a fake (16, 16) mesh: under `DP_ALL_PLAN` x 256
+  the one-device step's at the same global batch, exactly; under
+  `BASELINE_PLAN` (tensor-parallel compute, full widths cut to 2 layers)
+  x 16 the one-device step's at batch B / 16, exactly for the dense
+  config and with the replicated router and KV products stated for the
+  MoE one, no whole model-sharded weight gathered; `args_bytes` against
+  the local shards summed from `tree_shardings`.
 - No process group is left after `run_cell`, also after one that raised;
   a group already up is refused; ``cuda`` without a card raises.
 - `report`'s tables and `merge_runs` on the reference's own rows.
 """
+import dataclasses
 import importlib
 import json
 import os
@@ -133,11 +134,18 @@ def test_rows_equal_the_reference(rows, key):
     assert got["costs"]["flops"] > 0 and got["costs"]["bytes_accessed"] > 0
 
 
+#: all-gather bytes a device of the qwen1.5-0.5b train_4k step on (16, 16)
+#: at one microbatch when the step gathered every weight at use (the
+#: port's CLI on the CPU, before tensor-parallel compute)
+GATHERED_WEIGHTS_ALL_GATHER = 985_958_400
+
+
 def test_record_the_tensor_parallel_gap(rows):
     """The port's per-device terms beside the reference's (pytest -s
-    prints them): with every weight gathered, the train cell's per-device
-    FLOPs are the whole weights' on this rank's batch shard, ~16x the
-    reference's Megatron step on (16, 16)."""
+    prints them).  Under BASELINE_PLAN each rank computes on its shards
+    of the weights, as the reference's Megatron step: the train cell's
+    per-device FLOPs are within 0.75-1.25x the reference's, and its
+    all-gather bytes at least 4x below the gathered-weights step's."""
     for key in OK_ROWS:
         got, want = rows["port"][key], rows["ref"][key]
         g, w = got["costs"], want["costs"]
@@ -145,11 +153,17 @@ def test_record_the_tensor_parallel_gap(rows):
         print(f"{'/'.join(key)}: flops {g['flops']:.4e} / {w['flops']:.4e} = {ratio:.2f}; "
               f"args {got['memory']['args_bytes']} / {want['memory']['args_bytes']}; "
               f"temp {got['memory']['temp_bytes']} / {want['memory']['temp_bytes']}; "
+              f"all-gather {g['coll_by_kind']['all-gather']:.4e} / "
+              f"{w['coll_by_kind']['all-gather']:.4e}; "
+              f"all-reduce {g['coll_by_kind']['all-reduce']:.4e} / "
+              f"{w['coll_by_kind']['all-reduce']:.4e}; "
               f"coll {g['coll_bytes']:.4e} / {w['coll_bytes']:.4e}; "
               f"dominant {got['roofline']['dominant']} / {want['roofline']['dominant']}")
     train = ("single", "qwen1.5-0.5b", "train_4k")
-    ratio = rows["port"][train]["costs"]["flops"] / rows["ref"][train]["costs"]["flops"]
-    assert 8 < ratio < 32
+    got = rows["port"][train]["costs"]
+    ratio = got["flops"] / rows["ref"][train]["costs"]["flops"]
+    assert 0.75 <= ratio <= 1.25
+    assert 4 * got["coll_by_kind"]["all-gather"] <= GATHERED_WEIGHTS_ALL_GATHER
 
 
 # -- the tables, on the reference's rows ---------------------------------------
@@ -226,19 +240,66 @@ def test_dp_all_per_device_flops_are_the_one_device_steps_over_256():
     assert got["costs"].flops * 256 == one["costs"].flops
 
 
+def _router_and_kv_flops(cfg, tokens: int) -> tuple[float, float]:
+    """(the router's, the key and value projections') FLOPs of one-device
+    train steps over `tokens` tokens under remat: each product is run
+    forward twice (the step, the recompute) and twice backward (the
+    input's and the weight's gradients), 2 x m x n x k each."""
+    per = 4 * 2 * tokens * cfg.n_layers * cfg.d_model
+    return float(per * cfg.n_experts), float(2 * per * cfg.kv_dim)
+
+
 @pytest.mark.parametrize("arch", ["paper-gpt-125m", "phi3.5-moe-42b-a6.6b"])
-def test_baseline_per_device_flops_are_the_one_device_steps_at_b_over_16(arch):
-    """Held by placement only: each rank computes its 16 rows on the
-    gathered weights, four microbatches of 4."""
-    cfg = get_config(arch).reduced()
-    got = _on_production_mesh(cfg, ShapeConfig("t", 64, 256, "train"),
-                              sharding.BASELINE_PLAN, 4)
-    one = _one_device(cfg, ShapeConfig("t", 64, 16, "train"), sharding.BASELINE_PLAN, 4)
-    assert got["costs"].flops == one["costs"].flops
-    # every weight gathered each step
-    assert got["costs"].coll_counts["all-gather"] > 0
+def test_baseline_per_device_flops_are_the_one_device_steps_at_b_over_16(arch, monkeypatch):
+    """Tensor-parallel compute: at full widths cut to 2 layers, on fake
+    tensors, each rank's 16 rows (four microbatches of 4) run on its
+    shards of the weights, so 16 ranks of `model` together do the
+    one-device step's work at batch B / 16.  Dense (paper-gpt-125m: 12
+    heads do not divide 16, so the projections are column products
+    gathered whole and the attention is split over (batch, kv head)
+    groups): x 16 exactly.  MoE (phi3.5-moe at 512 tokens a row, so a
+    rank's microbatch is one dispatch group; 8 KV heads, replicated by
+    `_plan_for`'s GQA rule): the router's product is replicated (15
+    more copies of it), and each rank's two query heads read one KV head
+    sliced from the whole ``wk``/``wv``, 1/8 of the one-device
+    projections where a 16th would divide (one more copy of them): x 16
+    is 1.0284 x the one-device step's.  No
+    all-gather over `model` moves a whole model-sharded weight."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    gathers = []
 
+    class Recording(dryrun.OpCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func._overloadpacket.__name__ == "all_gather_into_tensor":
+                gathers.append((args[2], out.numel()))
+            return out
 
+    seq = cfg.moe_group // 4 if cfg.n_experts else 64  # a rank's microbatch: one group
+    shape = ShapeConfig("t", seq, 256, "train")
+    with monkeypatch.context() as m:
+        m.setattr(dryrun, "OpCounter", Recording)
+        with dryrun.fake_group():
+            mesh = port_mesh.make_production_mesh(device_type="cpu")
+            got = dryrun.measure_cell(cfg, shape, mesh, sharding.BASELINE_PLAN, "cpu",
+                                      accum=4)
+            model = build_model(cfg)
+            specs = steps.param_specs(model)
+            plan = dryrun._plan_for(cfg, shape, mesh, sharding.BASELINE_PLAN)
+            tp = sharding.tensor_parallel(sharding.tree_shardings(
+                mesh, model.param_axes(), plan, specs), plan)
+            group = mesh.get_group("model").group_name
+    one = _one_device(cfg, ShapeConfig("t", seq, 16, "train"), sharding.BASELINE_PLAN, 4)
+    router, kv = _router_and_kv_flops(cfg, 16 * seq)
+    if cfg.n_experts:
+        assert got["costs"].flops * 16 == pytest.approx(
+            one["costs"].flops + 15 * router + kv, rel=1e-9)
+        assert got["costs"].flops * 16 / one["costs"].flops == pytest.approx(1.0284, abs=1e-4)
+    else:
+        assert got["costs"].flops * 16 == one["costs"].flops
+    whole = {specs[n].numel() for n in tp.dims}
+    assert tp.dims and gathers
+    assert not [n for g, n in gathers if g == group and n in whole]
 @pytest.mark.parametrize("plan,accum", [("BASELINE_PLAN", 4), ("DP_ALL_PLAN", 1)])
 def test_args_bytes_are_the_local_shards(plan, accum):
     """Parameters, ZeRO-1 moments, count and step, and the batch, each

@@ -19,10 +19,21 @@
   ranks the prefill step under each plan
   and twelve decode steps under `DECODE_PLAN` (the caches placed by
   `cache_shardings_for`) against the one-device steps.
+- ZeRO-1's stacked moments (C14): every moment's bytes a device equal
+  the reference's, hymba-1.5b's SSM vectors stacked over its 32 layers;
+  the stacks through `shard_train_state`, `tree` and `load`.
+- Tensor-parallel compute under `BASELINE_PLAN`: the port's train step
+  and prefill on 2 and 4 Gloo ranks, (1, 2) and (2, 2), against the
+  reference's own GSPMD steps on 2 and 4 forced CPU devices (a fresh
+  interpreter with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``,
+  as `tests/conftest.py`'s shard rig sets it) for paper-gpt-125m and
+  phi3.5-moe reduced; paper-gpt, hymba and mamba2 reduced on (1, 2)
+  against the port's one-device step, biases and norm scales drawn.
 """
 import dataclasses
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -217,16 +228,32 @@ def test_cache_specs_are_the_caches(arch):
         assert c.shape == specs[k].shape and c.dtype == specs[k].dtype, k
 
 
+def _spec_bytes(spec, shape, sizes, itemsize=4) -> int:
+    """Bytes a device of a tensor of `shape` under `spec` (mesh axis sizes
+    `sizes` by name)."""
+    n = 1
+    for dim, size in zip(_padded(spec, len(shape)), shape):
+        for a in (() if dim is None else (dim,) if isinstance(dim, str) else dim):
+            assert size % sizes[a] == 0
+            size //= sizes[a]
+        n *= size
+    return n * itemsize
+
+
 @pytest.mark.parametrize("plan", ["BASELINE_PLAN", "DP_ALL_PLAN"])
 @pytest.mark.parametrize("arch", ["paper-gpt-125m", "phi3.5-moe-42b-a6.6b",
-                                  "whisper-base"])
+                                  "whisper-base", "hymba-1.5b"])
 def test_zero1_moments_equal_the_reference(fake_group, arch, plan):
     """Each moment's spec is the reference's, its stacked "layer" dim
-    dropped.  Where the reference's ZeRO-1 put ``data`` on that layer dim
-    (n_layers a multiple of 16: phi3.5-moe's 32), the port's per-layer
+    dropped, and its bytes a device are the reference's.  Where the
+    reference's ZeRO-1 puts ``data`` on that layer dim (n_layers a
+    multiple of 16: phi3.5-moe's and hymba's 32), the port's per-layer
     leaf takes ``data`` on the first of its own dims that 16 divides, as
-    the same rule on the per-layer shape does (`ROADMAP.md` §C14)."""
+    the same rule on the per-layer shape does; a leaf with no such dim
+    (hymba's SSM vectors, conv and norms) keeps its moments stacked over
+    the layers under the reference's key, with the reference's spec."""
     port_m, ref_m = _meshes("16x16")
+    sizes = dict(zip(MESHES["16x16"][1], MESHES["16x16"][0]))
     rmodel = ref_build_model(ref_config(arch))
     _, ref_sh = ref_build_train_step(rmodel, ref_m, getattr(ref_sharding, plan))
     spec_of = lambda tree: _ref_leaves(jax.tree.map(
@@ -237,12 +264,23 @@ def test_zero1_moments_equal_the_reference(fake_group, arch, plan):
     model, specs = _port_specs(arch)
     _, state_sh = steps.build_train_step(model, port_m, getattr(sharding, plan))
     on_layer = 0
+    got_bytes: dict[str, int] = {}
     for name, sh in state_sh.moments.items():
+        if name in state_sh.stacks:
+            members = state_sh.stacks[name]
+            assert [n.split(".")[1] for n in members] == [
+                str(i) for i in range(len(members))]
+            shape = (len(members),) + tuple(specs[members[0]].shape)
+            assert _padded(sh.spec, len(shape)) == _padded(ref_mu[name], len(shape)), name
+            got_bytes[name] = _spec_bytes(sh.spec, shape, sizes)
+            on_layer += 1
+            continue
         head, *rest = name.split(".")
         stacked = head in LAYER_STACKS
         key = ".".join([head] + rest[1:]) if stacked else name
         got = _padded(sh.spec, specs[name].dim())
         want = _padded(ref_mu[key], len(rspec[key]))
+        got_bytes[key] = got_bytes.get(key, 0) + _spec_bytes(got, specs[name].shape, sizes)
         if stacked and want[0] == "data":
             on_layer += 1
             # the rule on the per-layer leaf: the parameter's spec, then
@@ -256,6 +294,35 @@ def test_zero1_moments_equal_the_reference(fake_group, arch, plan):
             continue
         assert got == want[int(stacked):], name
     assert (on_layer > 0) == (model.cfg.n_layers % 16 == 0)
+    assert got_bytes == {k: _spec_bytes(ref_mu[k], rspec[k], sizes) for k in ref_mu}
+
+
+def test_stacked_moments_round_trip(fake_group):
+    """The stacked moments through `shard_train_state`, `TrainState.tree`
+    and `TrainState.load`: hymba reduced at 16 layers on (16, 16), whose
+    SSM vectors (8 heads) take no ``data``; each stack holds the layers'
+    moments in layer order."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=16)
+    model = build_model(cfg)
+    mesh, _ = _meshes("16x16")
+    _, state_sh = steps.build_train_step(model, mesh, sharding.BASELINE_PLAN)
+    assert "layers.ssm.A_log" in state_sh.stacks
+    assert state_sh.moments["layers.ssm.A_log"].spec == ("data", None)
+    state = steps.init_train_state(model, device="cpu")
+    for i, (name, t) in enumerate(state.opt.mu.items()):
+        t.copy_(torch.arange(t.numel(), dtype=t.dtype).reshape(t.shape) + i)
+    want = {n: t.clone() for n, t in state.opt.mu.items()}
+    state = steps.shard_train_state(state, state_sh)
+    assert set(state.opt.mu) == set(state_sh.moments)
+    for key, names in state_sh.stacks.items():
+        local = state.opt.mu[key].to_local()
+        assert local.shape[0] == 1  # layer 0 on this rank of 16, its first shard
+        first = want[names[0]][tuple(slice(0, n) for n in local.shape[1:])]
+        assert torch.equal(local[0], first), key
+    other = steps.shard_train_state(steps.init_train_state(model, device="cpu"), state_sh)
+    other.load(state.tree())
+    for n, t in state.opt.mu.items():
+        assert torch.equal(other.opt.mu[n].to_local(), t.to_local()), n
 
 
 def test_one_device_mesh_needs_no_group():
@@ -353,7 +420,8 @@ rank, init, case_path, plan, data, model_axis, out_path = (
     int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
     int(sys.argv[6]), sys.argv[7])
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=data * model_axis)
 case = torch.load(case_path, weights_only=False)
 model = build_model(case["cfg"])
 mesh = make_local_mesh(data, model_axis, device="cpu")
@@ -418,18 +486,27 @@ dist.destroy_process_group()
 _OPT = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
 
 
-def _gloo_step(tmp_path, case_path, plan, data, model_axis):
-    env = dict(os.environ)
+def _env(**extra):
+    env = dict(os.environ, **extra)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    init = f"file://{tmp_path / f'gloo_{plan}'}"
-    out = tmp_path / f"{plan}.pt"
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, str(r), init, str(case_path), plan, str(data),
+    return env
+
+
+def _gloo_ranks(script, tmp_path, tag, case_path, plan, data, model_axis):
+    """(the data x model_axis rank processes of `script` on one Gloo
+    group, started; the file rank 0 writes)."""
+    init = f"file://{tmp_path / f'gloo_{tag}'}"
+    out = tmp_path / f"{tag}.pt"
+    return [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), init, str(case_path), plan, str(data),
          str(model_axis), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(2)]
-    deadline = time.monotonic() + 240
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env())
+        for r in range(data * model_axis)], out
+
+
+def _wait(procs, seconds=240):
+    deadline = time.monotonic() + seconds
     try:
         for p in procs:
             _, stderr = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
@@ -439,6 +516,11 @@ def _gloo_step(tmp_path, case_path, plan, data, model_axis):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def _gloo_step(tmp_path, case_path, plan, data, model_axis):
+    procs, out = _gloo_ranks(_RANK, tmp_path, plan, case_path, plan, data, model_axis)
+    _wait(procs)
     return torch.load(out, weights_only=False)
 
 
@@ -556,10 +638,11 @@ def test_one_device_moe_step_equals_the_reference(one_device_moe):
 def test_two_gloo_ranks_equal_the_one_device_step(one_device, tmp_path, plan, data,
                                                   model_axis):
     """Loss and grad norm within rtol 1e-6, every parameter and moment as
-    `_close_params` holds them (the data-parallel sum adds the two
-    halves' gradients in another order than the one-device step); under
-    BASELINE_PLAN on (1, 2) both ranks compute the whole batch on the
-    gathered weights, so the step is the one-device step bit for bit."""
+    `_close_params` holds them: under DP_ALL_PLAN the data-parallel sum
+    adds the two halves' gradients in another order than the one-device
+    step; under BASELINE_PLAN on (1, 2) each rank computes on its shards
+    of the weights (Megatron column and row products, the vocab-parallel
+    cross-entropy), whose row products add two half contractions."""
     got = _gloo_step(tmp_path, one_device["case"], plan, data, model_axis)
     one = one_device["one"]
     assert got["step"] == 1
@@ -577,11 +660,8 @@ def test_two_gloo_ranks_equal_the_one_device_step(one_device, tmp_path, plan, da
     assert torch.equal(got["decode"], one["decode"])
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
     if plan == "BASELINE_PLAN":
-        assert torch.equal(got["prefill"], one["prefill"])
         # DECODE_PLAN on (1, 2): the cache sequence over `model`
         assert got["cache_placements"]["k"] == ["Replicate()", "Shard(dim=2)"]
-        for name, p in one["params"].items():
-            assert torch.equal(got["params"][name], p), name
         assert got["placements"]["layers.0.attn.wq"] == ["Replicate()", "Shard(dim=1)"]
         assert got["placements"]["layers.0.attn.wo"] == ["Replicate()", "Shard(dim=0)"]
         assert got["placements"]["embed"] == ["Replicate()", "Shard(dim=0)"]
@@ -618,3 +698,240 @@ def test_two_gloo_ranks_moe_equal_the_one_device_step(one_device_moe, tmp_path):
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
     assert "whole number of dispatch groups of 64" in got["uneven_error"]
     assert "(96)" in got["uneven_error"]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel steps on Gloo ranks against the reference's GSPMD step
+# ---------------------------------------------------------------------------
+
+#: the reference's train and prefill steps under BASELINE_PLAN on a CPU
+#: mesh of forced host devices (XLA_FLAGS is read when jax loads, so in
+#: a fresh interpreter); the prefill first, from the seed-0 weights the
+#: train step then donates
+_REF_MESH = r"""
+import pickle, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from repro.configs import get_config
+from repro.distributed import sharding
+from repro.launch.mesh import _axis_type_kwargs
+from repro.launch.steps import build_prefill_step, build_train_step, init_train_state
+from repro.models import build_model
+from repro.optim import AdamWConfig
+
+arch, case_path, out_path = sys.argv[1], sys.argv[2], sys.argv[3]
+with open(case_path, "rb") as f:
+    case = pickle.load(f)
+model = build_model(get_config(arch).reduced())
+out = {}
+for data, model_axis in case["meshes"]:
+    mesh = jax.make_mesh((data, model_axis), ("data", "model"),
+                         devices=jax.devices()[:data * model_axis], **_axis_type_kwargs(2))
+    batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
+    specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in batch.items()}
+    with mesh:
+        prefill, _ = build_prefill_step(model, mesh, sharding.BASELINE_PLAN,
+                                        batch_specs={"tokens": specs["tokens"]})
+        state = init_train_state(model, jax.random.PRNGKey(0))
+        logits = np.asarray(prefill(state.params, {"tokens": batch["tokens"]}))
+        step, _ = build_train_step(model, mesh, sharding.BASELINE_PLAN,
+                                   AdamWConfig(**case["opt"]), batch_specs=specs)
+        state, m = step(state, batch)
+        out[(data, model_axis)] = dict(
+            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), prefill=logits,
+            params=jax.tree.map(np.asarray, state.params))
+with open(out_path, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+#: one train step and the prefill on Gloo ranks, from the case's weights
+_TP_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (
+    build_prefill_step, build_train_step, init_train_state, shard_params, shard_train_state)
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+
+rank, init, case_path, plan, data, model_axis, out_path = (
+    int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
+    int(sys.argv[6]), sys.argv[7])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=data * model_axis)
+case = torch.load(case_path, weights_only=False)
+model = build_model(case["cfg"])
+mesh = make_local_mesh(data, model_axis, device="cpu")
+plan = case.get("plan") or getattr(sharding, plan)
+module = model.init(device="cpu")
+module.load_state_dict(case["params"])
+prefill, param_sh = build_prefill_step(model, mesh, plan)
+logits = prefill(shard_params(module, param_sh),
+                 {k: v for k, v in case["batch"].items() if k != "labels"})
+step, state_sh = build_train_step(model, mesh, plan, AdamWConfig(**case["opt"]))
+state = init_train_state(model, device="cpu")
+state.params.load_state_dict(case["params"])
+state, m = step(shard_train_state(state, state_sh), case["batch"])
+params = {n: p.full_tensor() for n, p in state.params.named_parameters()}
+full = logits.full_tensor()
+if rank == 0:
+    torch.save(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), params=params,
+                    prefill=full, logits_placements=[repr(p) for p in logits.placements],
+                    logits_local=list(logits.to_local().shape),
+                    stacks=sorted(state_sh.stacks)), out_path)
+dist.destroy_process_group()
+"""
+
+#: (arch, data, model): the reference's own step on the same mesh
+TP_REF_CASES = [("paper-gpt-125m", 1, 2), ("paper-gpt-125m", 2, 2),
+                ("phi3.5-moe-42b-a6.6b", 1, 2), ("phi3.5-moe-42b-a6.6b", 2, 2)]
+#: against the port's one-device step: name -> (arch reduced, config
+#: changes, plan rules changed from BASELINE_PLAN's or another plan's
+#: name, (data, model)).  Under DP_FSDP_PLAN `model` carries the batch,
+#: so every weight is stored split and gathered at use.
+#: Whole KV projections (the dry run's GQA rule) make each rank slice the
+#: KV heads its query heads read; 3 heads split a head across the 2
+#: ranks, so the projections are gathered whole (from the shard of ``wq``,
+#: from column slices of the whole ``wk``/``wv``) and the attention split
+#: over (batch, kv head) groups; the hybrid and the SSM split the SSD
+#: projections; the encoder-decoder's cross-attention reads the encoder's
+#: states; on (2, 2) a hidden dim of 127 leaves the MLP whole and
+#: ``bi`` with no dim `data` divides, so ZeRO-1 stacks its moments.
+TP_ONE_CASES = {
+    "dense": ("paper-gpt-125m", {}, {}, (1, 2)),
+    "dense-kv-whole": ("paper-gpt-125m", {}, {"kv_heads": None}, (1, 2)),
+    "dense-3-heads-kv-whole": ("paper-gpt-125m", {"n_heads": 3, "n_kv_heads": 3},
+                               {"kv_heads": None}, (1, 2)),
+    "dense-stacked-moments": ("paper-gpt-125m", {"d_ff": 127}, {}, (2, 2)),
+    "hybrid": ("hymba-1.5b", {}, {}, (1, 2)),
+    "ssm": ("mamba2-130m", {}, {}, (1, 2)),
+    "encdec": ("whisper-base", {}, {}, (1, 2)),
+    "fsdp": ("paper-gpt-125m", {}, "DP_FSDP_PLAN", (1, 2)),
+}
+
+
+def _tp_case(arch, changes, rules, seq=64):
+    """The case for the ranks: `arch` reduced (with `changes`), its seed-0
+    weights with every bias and norm scale drawn away from its 0 or 1 (so
+    one added on the wrong side of an all-reduce shows), a 4 x `seq`
+    batch, and the plan `rules` names, or BASELINE_PLAN with `rules`."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    model = build_model(cfg)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    batch["labels"][:2, :5] = -1
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            0, 1, (4, seq // cfg.enc_seq_divisor, cfg.d_model)).astype(np.float32))
+    weights = {n: p.detach().clone() if p.dim() > 1 else
+               p.detach() + torch.from_numpy(rng.normal(0, 0.1, p.shape).astype(np.float32))
+               for n, p in model.init(device="cpu").state_dict().items()}
+    plan = (getattr(sharding, rules) if isinstance(rules, str) else dataclasses.replace(
+        sharding.BASELINE_PLAN, rules={**sharding.BASELINE_PLAN.rules, **rules}))
+    return dict(cfg=cfg, opt=_OPT, params=weights, batch=batch, plan=plan)
+
+
+def _one_device_tp(case):
+    """The port's one-device train step and prefill of a `_tp_case`."""
+    model, weights, batch = build_model(case["cfg"]), case["params"], case["batch"]
+    mesh = port_mesh.make_local_mesh(device="cpu")
+    module = model.init(device="cpu")
+    module.load_state_dict(weights)
+    prefill, _ = steps.build_prefill_step(model, mesh, sharding.BASELINE_PLAN)
+    logits = prefill(module, {k: v for k, v in batch.items() if k != "labels"})
+    step, _ = steps.build_train_step(model, mesh, sharding.BASELINE_PLAN, AdamWConfig(**_OPT))
+    state = steps.init_train_state(model, device="cpu")
+    state.params.load_state_dict(weights)
+    state, m = step(state, batch)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), prefill=logits,
+                params={n: p.detach().clone() for n, p in state.params.named_parameters()})
+
+
+@pytest.fixture(scope="module")
+def tp_runs(one_device, one_device_moe, tmp_path_factory):
+    """Every tensor-parallel case at once: the reference's steps on 2- and
+    4-device CPU meshes (one interpreter an arch) and the port's on 2 and
+    4 Gloo ranks, started together; while they run, the port's
+    one-device steps of `TP_ONE_CASES`."""
+    tmp = tmp_path_factory.mktemp("tp")
+    cases = {"paper-gpt-125m": one_device, "phi3.5-moe-42b-a6.6b": one_device_moe}
+    one_cases = {name: _tp_case(*spec[:3]) for name, spec in TP_ONE_CASES.items()}
+    for name, case in one_cases.items():
+        torch.save(case, tmp / f"{name}.pt")
+    procs, outs = [], {}
+    for arch, fixture in cases.items():
+        case = torch.load(fixture["case"], weights_only=False)
+        with open(tmp / f"{arch}.pkl", "wb") as f:
+            pickle.dump(dict(batch={k: v.numpy() for k, v in case["batch"].items()},
+                             opt=_OPT, meshes=[(d, m) for a, d, m in TP_REF_CASES
+                                               if a == arch]), f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _REF_MESH, arch, str(tmp / f"{arch}.pkl"),
+             str(tmp / f"{arch}.ref")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=_env(JAX_PLATFORMS="cpu",
+                                XLA_FLAGS="--xla_force_host_platform_device_count=4")))
+    for arch, data, model_axis in TP_REF_CASES:
+        ranks, outs[arch, data, model_axis] = _gloo_ranks(
+            _TP_RANK, tmp, f"{arch}_{data}x{model_axis}", cases[arch]["case"],
+            "BASELINE_PLAN", data, model_axis)
+        procs += ranks
+    for name, (*_, (data, model_axis)) in TP_ONE_CASES.items():
+        ranks, outs[name] = _gloo_ranks(_TP_RANK, tmp, f"one_{name}", tmp / f"{name}.pt",
+                                        "BASELINE_PLAN", data, model_axis)
+        procs += ranks
+    try:
+        ones = {name: _one_device_tp(case) for name, case in one_cases.items()}
+    finally:
+        _wait(procs, 300)
+    ref = {}
+    for arch in cases:
+        with open(tmp / f"{arch}.ref", "rb") as f:
+            ref[arch] = pickle.load(f)
+    return dict(port={k: torch.load(v, weights_only=False) for k, v in outs.items()},
+                ref=ref, ones=ones, lr=one_device["lr"])
+
+
+@pytest.mark.parametrize("arch,data,model_axis", TP_REF_CASES)
+def test_tensor_parallel_step_equals_the_reference(tp_runs, arch, data, model_axis):
+    """BASELINE_PLAN on (1, 2) and (2, 2): each rank computes on its
+    shards of the weights (heads, mlp, vocab and experts over `model`,
+    the experts' hidden dim gathered over `data`), against the
+    reference's GSPMD step on as many CPU devices: loss and grad norm
+    within rel 1e-5, parameters by `_close_params`, prefill logits within
+    1e-5, the logits split over the vocab on `model`."""
+    got, want = tp_runs["port"][arch, data, model_axis], tp_runs["ref"][arch][data, model_axis]
+    cfg = get_config(arch).reduced()
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+    _close_params(got["params"], params_from_jax(want["params"], cfg), tp_runs["lr"])
+    torch.testing.assert_close(got["prefill"], torch.from_numpy(want["prefill"]),
+                               rtol=1e-5, atol=1e-5)
+    assert got["logits_placements"][1] == "Shard(dim=2)"
+    assert got["logits_local"] == [4 // data, want["prefill"].shape[1],
+                                   cfg.padded_vocab // model_axis]
+
+
+@pytest.mark.parametrize("case", sorted(TP_ONE_CASES))
+def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
+    """Under BASELINE_PLAN (`TP_ONE_CASES`), against the port's one-device
+    step with biases and norm scales drawn: the dense family's ``bi``,
+    ``bo`` and qkv biases each on its side of the all-reduce, in each of
+    the attention's layouts; the hybrid (sliding-window attention beside
+    the SSD mixer) and the SSM family's ``in_proj`` a column product
+    gathered before its split, the conv on each rank's channels,
+    ``out_proj`` a row product; the encoder-decoder's self- and
+    cross-attention; ZeRO-1's stacked moments updated and written back
+    to their layers."""
+    got, one = tp_runs["port"][case], tp_runs["ones"][case]
+    assert ("layers.mlp.bi" in got["stacks"]) == (case == "dense-stacked-moments")
+    # the logits' vocab over `model` where the plan computes on its shards
+    assert (got["logits_placements"][1] == "Shard(dim=2)") == (case != "fsdp")
+    assert got["loss"] == pytest.approx(one["loss"], rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-5)
+    _close_params(got["params"], one["params"], tp_runs["lr"])
+    torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
