@@ -159,8 +159,15 @@ package — in these phases, and exits non-zero if any fails:
            layers, f32: 3 train steps, 32 decode steps) equal the plain
            steps bit for bit, every parameter, moment and cache
            included; `compress_grads` on the card equals its CPU result
-           on the same leaves bit for bit.  The train and serve phases
-           above build their steps through the same mesh and plans;
+           on the same leaves bit for bit; the sequence-parallel decode's
+           softmax in one process (`chunked_decode_attention`, a 32k
+           cache in 16 chunks, paper-gpt-125m's 12 heads of 64, filled
+           to 20,000 so the last chunks are masked) equals
+           `decode_attention` on the card in both cache layouts and both
+           `cast_f32` values (f32 within 1e-6; bf16 within one bf16
+           rounding, atol 1e-2 and rtol 2**-7).  The train and serve
+           phases above build their steps through the same mesh and
+           plans;
   dryrun   `python -m repro_torch.launch.dryrun` on a fake 256/512-rank
            group, in subprocesses, all at once: qwen1.5-0.5b train_4k (one
            microbatch), mamba2-130m decode_32k on both meshes, phi3.5-moe
@@ -173,7 +180,9 @@ package — in these phases, and exits non-zero if any fails:
            up; the qwen train row's per-device FLOPs and all-gather bytes
            (its step computes on its shards of the weights: Megatron
            tensor parallelism under BASELINE_PLAN) on a line of their
-           own; then the dry run of the train phase's own step
+           own, and the decode rows' FLOPs, temp and all-gather bytes on
+           another (each rank decodes its rows against its slices of the
+           caches under DECODE_PLAN); then the dry run of the train phase's own step
            (paper-gpt-125m, one device, 8 x 512, bf16) beside that
            phase's measured peak: its `args_bytes` must not exceed it.
 
@@ -1969,6 +1978,8 @@ def mesh_phase(torch, np) -> dict:
         if not torch.equal(caches["mesh"][k], caches["plain"][k]):
             raise AssertionError(f"mesh serve step: cache {k} differs")
 
+    split_errors = split_softmax_case(torch)
+
     rng = np.random.default_rng(7)
     leaves = {name: rng.standard_normal(tuple(p.shape)).astype(np.float32)
               for name, p in list(plain_params.items())[:6]}
@@ -1987,10 +1998,51 @@ def mesh_phase(torch, np) -> dict:
                 raise AssertionError(f"compress_grads on the card: {k} differs from the CPU")
     return dict(mesh=str(mesh), mesh_shape=list(mesh.shape), layers=MESH_LAYERS,
                 train_steps=MESH_TRAIN_STEPS, losses=mesh_losses,
-                decode_steps=seq_len, compress_leaves=len(leaves),
+                decode_steps=seq_len, split_softmax_max_abs_err=split_errors,
+                compress_leaves=len(leaves),
                 compress_elements=sum(v.size for v in leaves.values()),
                 moments_placements=sorted({str(sh.placements)
                                            for sh in state_sh.moments.values()}))
+
+
+#: the mesh phase's split softmax: batch, cache positions, chunks (one a
+#: rank of `model` in the production meshes), filled length; heads of
+#: paper-gpt-125m; tolerances by dtype (atol, rtol)
+SPLIT_CASE = (8, 32768, 16, 20000)
+SPLIT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-2, 2**-7)}
+
+
+def split_softmax_case(torch) -> dict:
+    """`chunked_decode_attention` (the sequence-parallel decode's softmax,
+    its chunks combined in one process) against `decode_attention` on
+    the card: both layouts, both `cast_f32`, f32 and bf16 caches; each
+    case's max abs error, held to `SPLIT_TOL`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config("paper-gpt-125m")
+    b, positions, chunks, length = SPLIT_CASE
+    g = torch.Generator(device="cuda").manual_seed(3)
+    errors = {}
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), generator=g, device="cuda").to(td)
+        for layout, seq in (("bskd", 1), ("bksd", 2)):
+            shape = ((b, positions, cfg.n_kv_heads, cfg.head_dim) if layout == "bskd"
+                     else (b, cfg.n_kv_heads, positions, cfg.head_dim))
+            k, v = (torch.randn(shape, generator=g, device="cuda").to(td) for _ in range(2))
+            whole = attention.decode_attention if layout == "bskd" else \
+                attention.decode_attention_bksd
+            for cast_f32 in (True, False):
+                got = attention.chunked_decode_attention(
+                    q, k.chunk(chunks, seq), v.chunk(chunks, seq), length,
+                    cast_f32=cast_f32, layout=layout)
+                want = whole(q, k, v, length, cast_f32=cast_f32)
+                atol, rtol = SPLIT_TOL[dtype]
+                torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+                errors[f"{dtype}/{layout}/cast_f32={cast_f32}"] = float(
+                    (got.float() - want.float()).abs().max())
+    return errors
 
 
 #: the dryrun phase: (arch, shape, mesh, flags), one CLI call each on the
@@ -2092,6 +2144,14 @@ def dryrun_phase(torch, train_peak: int) -> dict:
         "flops_per_device": qwen["flops"],
         "all_gather_bytes": qwen["coll_by_kind"]["all-gather"],
         "all_reduce_bytes": qwen["coll_by_kind"]["all-reduce"]}), flush=True)
+    # the decode rows: each rank decodes its batch rows against its own
+    # slices of the caches, on its shards of the weights
+    print("dryrun-sequence-parallel " + json.dumps({
+        name: {"flops_per_device": row["costs"]["flops"],
+               "temp_bytes": row["memory"]["temp_bytes"],
+               "all_gather_bytes": row["costs"]["coll_by_kind"]["all-gather"]}
+        for name, row in rows["cuda"].items()
+        if "decode_32k" in name and row["status"] == "ok"}), flush=True)
     summary = {name: {k: row.get(k) for k in ("status", "n_chips", "plan", "accum")}
                | ({"flops": row["costs"]["flops"],
                    "coll_bytes": row["costs"]["coll_bytes"],

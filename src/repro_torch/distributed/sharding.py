@@ -27,7 +27,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
-from .tensor_parallel import TensorParallel
+from .tensor_parallel import MeshAxis, TensorParallel
 
 __all__ = [
     "ShardingPlan",
@@ -45,6 +45,7 @@ __all__ = [
     "ssm_cache_sharding",
     "shard_placements",
     "compute_placements",
+    "SERVE_SHARDED_ON_BATCH",
     "tensor_parallel",
 ]
 
@@ -176,45 +177,86 @@ class Sharding:
         return Sharding(self.mesh, tuple(dims))
 
 
-def compute_placements(sh: Sharding, plan: ShardingPlan) -> tuple:
-    """The placements a train or prefill step computes a parameter with.
+#: The serve step's exception to the storage rule of `compute_placements`:
+#: the logical axes a serve step computes on the rank's shard where the
+#: plan splits them over a batch axis.  The experts' hidden dim
+#: (``expert_mlp`` over ``data``): decode has few tokens and large
+#: weights, so the MoE block gathers its tokens over the batch axes
+#: (B x d_model a layer) and reduces a partial sum over ``data``, where
+#: gathering the weights would move every expert's whole hidden dim on
+#: every token.
+SERVE_SHARDED_ON_BATCH = frozenset({"expert_mlp"})
+
+
+def compute_placements(sh: Sharding, plan: ShardingPlan,
+                       logical: Sequence[str | None] = (),
+                       keep: frozenset = frozenset()) -> tuple:
+    """The placements a step computes a parameter with.
 
     A split over an axis of the plan's ``batch_axes`` is storage (FSDP,
     `DP_FSDP_PLAN`'s ``model``, `BASELINE_PLAN`'s ``expert_mlp`` over
-    ``data``): the weight is gathered at use, ``Replicate()``.  A split
-    over any other axis is tensor or expert parallelism (`BASELINE_PLAN`'s
-    heads, kv_heads, mlp, vocab and expert over ``model``): the rank
-    computes on its shard, the placement stays.  A dim that sanitisation
-    left whole is computed whole.
+    ``data``): the weight is gathered at use, ``Replicate()``, unless the
+    split dim's logical axis (`logical`, one per dim) is in `keep`
+    (`SERVE_SHARDED_ON_BATCH` in a serve step).  A split over any other
+    axis is tensor or expert parallelism (`BASELINE_PLAN`'s heads,
+    kv_heads, mlp, vocab and expert over ``model``): the rank computes on
+    its shard, the placement stays.  A dim that sanitisation left whole
+    is computed whole.
     """
     names = _names(sh.mesh)
-    return tuple(Replicate() if names[i] in plan.batch_axes else p
+    logical = tuple(logical) + (None,) * len(sh.spec)
+    return tuple(Replicate() if names[i] in plan.batch_axes
+                 and not (isinstance(p, Shard) and logical[p.dim] in keep) else p
                  for i, p in enumerate(sh.placements))
 
 
-def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan):
+def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan,
+                    axes: Mapping[str, Sequence[str | None]] | None = None,
+                    keep: frozenset = frozenset()):
     """The `TensorParallel` context of a step over these parameter
-    shardings, its ``dims`` by parameter name (the dim `compute_placements`
-    leaves split), or None when every parameter is computed whole.  One
-    mesh axis at most may carry such splits."""
+    shardings (`axes`, `keep`: `compute_placements`' arguments, by
+    parameter name), or None on a mesh of one device.  Its ``dims`` are
+    the dims `compute_placements` leaves split over a model axis, and
+    its ``batch_dims`` those it leaves split over batch axes; its
+    ``batch`` the plan's batch axes of more than one rank.  One mesh axis
+    at most may carry model splits; the context is over that axis, else
+    over the plan's cache-sequence axis where the mesh has one, else of
+    one rank (no group)."""
     dims: dict[str, int] = {}
-    axes: set[int] = set()
-    mesh = None
-    for name, sh in shardings.items():
-        for i, p in enumerate(compute_placements(sh, plan)):
-            if isinstance(p, Shard):
-                dims[name], mesh = p.dim, sh.mesh
-                axes.add(i)
-    if not dims:
+    batch_dims: dict[str, tuple[int, tuple[int, ...]]] = {}
+    found: set[int] = set()
+    mesh = next(iter(shardings.values())).mesh
+    if mesh.size() == 1:
         return None
-    if len(axes) > 1:
+    names = _names(mesh)
+    batch_names = [a for a in names if a in plan.batch_axes and axis_size(mesh, a) > 1]
+    batch = tuple(MeshAxis(mesh.get_group(a).group_name, mesh.get_local_rank(a),
+                           axis_size(mesh, a)) for a in batch_names)
+    for name, sh in shardings.items():
+        for i, p in enumerate(compute_placements(sh, plan, (axes or {}).get(name, ()), keep)):
+            if not isinstance(p, Shard):
+                continue
+            if names[i] in plan.batch_axes:
+                dim, on = batch_dims.get(name, (p.dim, ()))
+                batch_dims[name] = (dim, on + (batch_names.index(names[i]),))
+            else:
+                dims[name] = p.dim
+                found.add(i)
+    if len(found) > 1:
         raise NotImplementedError(
             f"tensor-parallel compute over more than one mesh axis "
-            f"({[_names(mesh)[i] for i in sorted(axes)]}) under plan {plan.name}")
-    axis = _names(mesh)[axes.pop()]
+            f"({[names[i] for i in sorted(found)]}) under plan {plan.name}")
+    if found:
+        axis = names[found.pop()]
+    else:
+        axis = next((a for a in plan.cache_seq_axes if a in names
+                     and axis_size(mesh, a) > 1 and a not in plan.batch_axes), None)
+    if axis is None:
+        return TensorParallel(group="", rank=0, size=1, dims={}, batch=batch,
+                              batch_dims=batch_dims)
     return TensorParallel(group=mesh.get_group(axis).group_name,
                           rank=mesh.get_local_rank(axis), size=axis_size(mesh, axis),
-                          dims=dims)
+                          dims=dims, batch=batch, batch_dims=batch_dims)
 
 
 def _axes_filter(mesh: DeviceMesh, axes: MeshAxes, used: set[str]) -> MeshAxes:

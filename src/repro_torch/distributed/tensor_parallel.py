@@ -15,6 +15,22 @@ The model code then runs Megatron's layout:
   whole layout;
 - `max`, an all-reduce of a value that takes no gradient.
 
+The context also names the mesh axes the batch is split over
+(`batch`, major first): `gather_batch` puts the ranks' rows together
+(all-gather forward, a reduce-scatter of the gradient backward: the
+rows' gradient is summed over every rank that read them) and
+`scatter_batch` takes this rank's rows back, reduce-scattered over the
+batch axes a weight is split on (a serve step computes the experts on
+their hidden dim's shard over ``data``, `batch_dim`), sliced over the
+others.  The MoE block reads them to form the reference's global
+dispatch groups.  A context of one rank on the model axis (``size``
+1, no group) issues no model-axis collective.
+
+A decode step also reads `caches`: the keys of the caches whose
+sequence is split over the model axis; the attention then combines its
+softmax over the ranks with `all_max` and `all_sum`, collectives of
+inference only (no autograd).
+
 So a weight no rank splits, used on every rank by the same computation,
 gets the same whole gradient on every rank, and a split weight's
 gradient is its shard's.  The collectives are the functional ones
@@ -29,7 +45,7 @@ from typing import Mapping
 
 import torch
 
-__all__ = ["TensorParallel"]
+__all__ = ["MeshAxis", "TensorParallel"]
 
 _ops = torch.ops._c10d_functional
 
@@ -41,6 +57,12 @@ def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, dim: int, size: int, group: str) -> torch.Tensor:
     """The ranks' `x` concatenated along `dim`, in rank order."""
     y = _ops.all_gather_into_tensor(x.movedim(dim, 0).contiguous(), size, group)
+    return _ops.wait_tensor(y).movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, size: int, group: str) -> torch.Tensor:
+    """This rank's part along `dim` of `x` summed over the ranks."""
+    y = _ops.reduce_scatter_tensor(x.movedim(dim, 0).contiguous(), "sum", size, group)
     return _ops.wait_tensor(y).movedim(0, dim)
 
 
@@ -92,44 +114,117 @@ class _Split(torch.autograd.Function):
         return _all_gather(g, ctx.dim, ctx.tp.size, ctx.tp.group), None, None
 
 
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        for axis in reversed(tp.batch):  # minor first: rows end up major-first
+            x = _all_gather(x, dim, axis.size, axis.group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for axis in ctx.tp.batch:
+            g = _reduce_scatter(g, ctx.dim, axis.size, axis.group)
+        return g, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxis:
+    """One mesh axis as a rank sees it: its group's name, this rank's
+    index on it and its size."""
+
+    group: str
+    rank: int
+    size: int
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class TensorParallel:
     """This rank's place on the model axis: the axis' process group
     (its name), this rank's index on it and its size, and `dims`: for
     each parameter (by name) the plan splits over the axis, the dim it
     is split on.  `bind` ties the names to the tensors of one call, which
-    `dim` then reads."""
+    `dim` then reads.  `batch`: the batch axes of more than one rank;
+    `batch_dims`: for each parameter computed on its shard over batch
+    axes, (the dim, the positions in `batch` of the axes it is split
+    over).  `caches`: the caches split over the model axis."""
 
     group: str
     rank: int
     size: int
     dims: Mapping[str, int]
     bound: Mapping[int, int] = dataclasses.field(default_factory=dict)
+    batch: tuple[MeshAxis, ...] = ()
+    batch_dims: Mapping[str, tuple[int, tuple[int, ...]]] = dataclasses.field(
+        default_factory=dict)
+    batch_bound: Mapping[int, tuple[int, tuple[int, ...]]] = dataclasses.field(
+        default_factory=dict)
+    caches: frozenset = frozenset()
 
     def bind(self, tensors: Mapping[str, torch.Tensor]) -> "TensorParallel":
         """This context for the model's `tensors`, by parameter name."""
         return dataclasses.replace(self, bound={
-            id(t): self.dims[n] for n, t in tensors.items() if n in self.dims})
+            id(t): self.dims[n] for n, t in tensors.items() if n in self.dims},
+            batch_bound={id(t): self.batch_dims[n] for n, t in tensors.items()
+                         if n in self.batch_dims})
 
     def dim(self, w: torch.Tensor | None) -> int | None:
         """The dim of `w` that is this rank's shard, None when `w` is whole."""
         return None if w is None else self.bound.get(id(w))
+
+    def batch_dim(self, w: torch.Tensor | None) -> int | None:
+        """The dim of `w` that is this rank's shard over batch axes."""
+        return None if w is None else self.batch_bound.get(id(w), (None,))[0]
+
+    @property
+    def batch_size(self) -> int:
+        """The ranks the batch is split over."""
+        n = 1
+        for axis in self.batch:
+            n *= axis.size
+        return n
+
+    def gather_batch(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' rows of `x` along `dim`, in the batch's global order."""
+        return _GatherBatch.apply(x, dim % x.dim(), self) if self.batch else x
+
+    def scatter_batch(self, x: torch.Tensor, dim: int = 0,
+                      w: torch.Tensor | None = None) -> torch.Tensor:
+        """This rank's rows of `x` (the global batch along `dim`): summed
+        over the batch axes `w` is split on (`x` a partial sum there), a
+        slice over the others; the sum takes no gradient."""
+        axes = self.batch_bound.get(id(w), (None, ()))[1] if w is not None else ()
+        for i, axis in enumerate(self.batch):
+            if i in axes:
+                x = _reduce_scatter(x, dim, axis.size, axis.group)
+            else:
+                x = _slice(x, dim, axis.rank, axis.size)
+        return x
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`'s max over the model axis (no autograd)."""
+        return x if self.size == 1 else _all_reduce(x, "max", self.group)
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` summed over the model axis (no autograd)."""
+        return x if self.size == 1 else _all_reduce(x, "sum", self.group)
 
     def start(self, local: int) -> int:
         """The global index of this rank's first of `local` rows of a split dim."""
         return self.rank * local
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
-        return _Copy.apply(x, self)
+        return x if self.size == 1 else _Copy.apply(x, self)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return _Reduce.apply(x, self)
+        return x if self.size == 1 else _Reduce.apply(x, self)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return _Gather.apply(x, dim % x.dim(), self)
+        return x if self.size == 1 else _Gather.apply(x, dim % x.dim(), self)
 
     def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return _Split.apply(x, dim % x.dim(), self)
+        return x if self.size == 1 else _Split.apply(x, dim % x.dim(), self)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
-        return _all_reduce(x.detach(), "max", self.group)
+        return self.all_max(x.detach())

@@ -25,8 +25,10 @@ the train and prefill steps compute on the rank's shards of the weights
 the plan splits over ``model`` (`launch.steps`: Megatron column and row
 products, vocab-parallel head and cross-entropy, expert-parallel MoE,
 their all-reduces and all-gathers counted), and gather at use only what
-is stored split over a batch axis; the serve step still gathers the
-weights and the caches.
+is stored split over a batch axis; the serve step decodes each rank's
+batch rows against its slices of the caches on its shards of the
+weights (the softmax combined over ``model``, the MoE blocks' tokens
+gathered over the batch axes), gathering no cache and no weight.
 
 The row's keys are the reference's.  `memory`, in eager torch's terms
 (per device, bytes):

@@ -16,23 +16,38 @@ stage times what its name says:
 Weights come from `model.init` with a seeded generator and the prompts
 from another, both drawn on the CPU, so one seed gives the same weights
 and prompts on the card and on the CPU; `run` also takes them injected.
+
+Under torchrun (``WORLD_SIZE`` > 1) each process joins the group (Gloo
+on the CPU, NCCL on the cards, one card a local rank) and the serve step
+runs on `make_local_mesh()` over it, as the reference's driver takes
+every local device: the weights placed by `DECODE_PLAN`, the caches by
+`cache_shardings_for` (made whole first, the encoder-decoder's from its
+encoder pass, then placed), the prompts over the batch axes.  The
+greedy argmax reads the logits' `full_tensor()` ([B, 1, V]).  Each rank
+keeps its own monitor, as the reference's; rank 0 prints the summary:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --reduced --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..configs import get_config
+from ..configs import ShapeConfig, get_config
 from ..core.contract import StageSchema
 from ..distributed.sharding import DECODE_PLAN
 from ..models import build_model
 from ..models.transformer import torch_dtype
 from ..telemetry.collector import Monitor
 from .mesh import make_local_mesh
-from .steps import build_serve_step, shard_params
+from .steps import build_serve_step, cache_shardings_for, shard_params
 
 SERVE_STAGES = (
     "request.wait",
@@ -65,6 +80,26 @@ def _wait(tok: torch.Tensor) -> None:
         done.synchronize()
 
 
+def _join_group(device: torch.device) -> tuple[torch.device, bool]:
+    """Join the process group torchrun describes, where it names more
+    than one process and none is up: (this process's device, whether
+    it joined)."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device, False
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device, True
+
+
+def _greedy(logits) -> torch.Tensor:
+    """The argmax token of each row's last position (the whole batch)."""
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
+    return torch.argmax(logits[:, -1:, :], dim=-1)
+
+
 def run(args, *, params: dict | None = None, prompts=None) -> dict:
     """Serve one synthetic batch.  `params` (a state dict, e.g. from
     `params_from_jax`) replaces the drawn weights and `prompts` ([batch,
@@ -75,6 +110,15 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
             "repro_torch.launch.serve: CUDA was asked for but is not "
             "available (pass --device cpu to serve on the CPU)"
         )
+    device, joined = _join_group(device)
+    try:
+        return _serve(args, device, params, prompts)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, params, prompts) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -86,9 +130,26 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
     module = model.init(torch.Generator().manual_seed(0), device)
     if params is not None:
         module.load_state_dict(params)
-    serve_step, param_sh = build_serve_step(
-        model, make_local_mesh(device=device), DECODE_PLAN, seq_len
-    )
+    mesh = make_local_mesh(device=device)
+    serve_step, param_sh = build_serve_step(model, mesh, DECODE_PLAN, seq_len)
+
+    def init_caches():
+        frames = None
+        if cfg.family == "encdec":
+            # the stub audio frontend's frames: zeros, as the reference's
+            # driver; the encoder pass is charged to the prefill stage
+            frames = torch.zeros(
+                (args.batch, max(seq_len // cfg.enc_seq_divisor, 1), cfg.d_model),
+                dtype=torch_dtype(cfg.compute_dtype), device=device)
+        return model.init_caches(module, args.batch, seq_len, frames=frames)
+
+    whole = None
+    if mesh.size() > 1:  # made from the plain weights, placed in the prefill stage
+        whole = init_caches()
+        cache_sh = cache_shardings_for(
+            mesh, DECODE_PLAN, model.cache_specs(ShapeConfig("serve", seq_len, args.batch,
+                                                             "decode")),
+            seq_dim=3 if cfg.cache_layout == "bksd" and cfg.family != "encdec" else 2)
     module = shard_params(module, param_sh)
     if prompts is None:
         prompts = torch.randint(
@@ -102,25 +163,22 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
         with monitor.stage("request.wait"):
             pass  # synthetic batched request already materialized
         with monitor.stage("prefill.cpu_wall"):
-            frames = None
-            if cfg.family == "encdec":
-                # the stub audio frontend's frames: zeros, as the
-                # reference's driver; the encoder pass is charged here
-                frames = torch.zeros(
-                    (args.batch, max(seq_len // cfg.enc_seq_divisor, 1), cfg.d_model),
-                    dtype=torch_dtype(cfg.compute_dtype), device=device)
-            caches = model.init_caches(module, args.batch, seq_len, frames=frames)
+            if whole is None:
+                caches = init_caches()
+            else:
+                caches = {k: distribute_tensor(c, mesh, cache_sh[k].placements)
+                          for k, c in whole.items()}
             # feed the prompt token-by-token (cache warmup)
             for i in range(args.prompt_len):
                 logits, caches = serve_step(module, caches, prompts[:, i:i + 1], i)
     monitor.end_of_step()
-    tok = torch.argmax(logits[:, -1:, :], dim=-1)
+    tok = _greedy(logits)
     for j in range(args.decode):
         with monitor.step():
             with monitor.stage("decode.dispatch_cpu_wall"):
                 logits, caches = serve_step(module, caches, tok, args.prompt_len + j)
             with monitor.stage("decode.device_wait_cpu_wall"):
-                tok = torch.argmax(logits[:, -1:, :], dim=-1)
+                tok = _greedy(logits)
                 _wait(tok)
             with monitor.stage("callbacks.cpu_wall"):
                 tokens_out.append(tok[:, 0].cpu().numpy())
@@ -144,7 +202,9 @@ def run(args, *, params: dict | None = None, prompts=None) -> dict:
 
 def main() -> None:
     args = make_argparser().parse_args()
-    print(json.dumps(run(args), indent=2))
+    out = run(args)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps(out, indent=2))
 
 
 if __name__ == "__main__":

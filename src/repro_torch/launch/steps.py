@@ -30,8 +30,10 @@ vocab-parallel embedding, logits and cross-entropy, expert-parallel
 MoE).  Each rank computes the loss of its own batch shard weighted by
 its share of the global batch's supervised tokens (labels of -1 are
 ignored, so a mean of per-rank means is not the global mean), and the
-MoE load-balance term, a mean over dispatch groups, by its share of the
-groups (each rank must hold a whole number of them).  A gradient stays
+MoE load-balance term, a mean over the global array's dispatch groups,
+by its share of the batch (where a rank's tokens are no whole number of
+groups, the MoE block gathers its input over the batch axes and routes
+the global groups, `models.moe`).  A gradient stays
 on its shard: it is summed over the batch axes into its moment's shard
 (a reduce-scatter); the global-norm clip adds each shard's square-sum
 once over the axes it is split on; the AdamW update runs on each
@@ -39,9 +41,14 @@ moment's shard and the new weights go back to the plan's placements.
 The prefill returns its logits as a DTensor, batch over the batch axes
 and, where the vocab is split, vocab over the model axis.
 
-The serve step gathers the weights and the caches and decodes the whole
-batch on every rank: the sequence-parallel decode of `DECODE_PLAN` (the
-KV cache's sequence over ``model``) is held by placement only.
+The serve step decodes each rank's batch shard against its own slices
+of the caches (`DECODE_PLAN`: the KV caches' sequence over ``model``,
+the SSM's caches over the batch only) on its own shards of the weights,
+the experts' hidden dim over ``data`` included
+(`sharding.SERVE_SHARDED_ON_BATCH`): no cache and no weight is gathered.
+The attention's softmax is combined over ``model``, the caches are
+written in place on the rank that holds the position, and the logits
+come back as the prefill's do.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from ..distributed.sharding import (
+    SERVE_SHARDED_ON_BATCH,
     Sharding,
     ShardingPlan,
     axis_size,
@@ -263,28 +271,6 @@ def shard_train_state(state: TrainState, state_sh: StateShardings) -> TrainState
 # -- the step on a mesh of more than one device --------------------------------
 
 
-class _Gathered:
-    """The serve step's model: a plain replica on this rank's device
-    whose weights are the DTensors' full values, refreshed at every call
-    (the all-gather GSPMD inserts where a sharded weight is used).  Its
-    meta module is made when the step is built: `to_empty` cannot move a
-    module made under `FakeTensorMode` (the dry run's) onto a device."""
-
-    def __init__(self, model: Model):
-        with torch.device("meta"):
-            self.meta = model.init(device="meta")
-        self.module = None
-
-    @torch.no_grad()
-    def __call__(self, params: nn.Module) -> nn.Module:
-        full = {n: p.full_tensor() for n, p in params.named_parameters()}
-        if self.module is None:
-            self.module = self.meta.to_empty(device=next(iter(full.values())).device)
-        for n, p in self.module.named_parameters():
-            p.copy_(full[n])
-        return self.module
-
-
 def _batch_layout(mesh: DeviceMesh, plan: ShardingPlan, dim: int):
     """(the batch leaves' placements with the batch at tensor dim `dim`,
     the placements of a per-rank partial sum over the batch axes)."""
@@ -309,24 +295,6 @@ def _sum_over_batch(x: torch.Tensor, mesh: DeviceMesh, partial) -> torch.Tensor:
     return DTensor.from_local(x, mesh, partial).full_tensor()
 
 
-def _group_share(cfg, mb: dict, shards: int) -> float:
-    """This rank's share of a microbatch's MoE dispatch groups (1/shards).
-
-    The reference groups the global token array; the ranks' groups are
-    those groups only where each rank holds a whole number of them.
-    """
-    tokens = mb["tokens"].shape[0] * (
-        mb["tokens"].shape[1]
-        + (mb["frontend_embeds"].shape[1] if "frontend_embeds" in mb else 0))
-    group = min(cfg.moe_group, tokens * shards)
-    if shards > 1 and tokens % group:
-        raise ValueError(
-            f"the moe step over {shards} batch shards needs each rank's tokens "
-            f"({tokens}) to be a whole number of dispatch groups of {group}"
-        )
-    return 1.0 / shards
-
-
 def _shifted(placements) -> tuple:
     """Placements of a tensor stacked on a new leading dim."""
     return tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p for p in placements)
@@ -336,15 +304,18 @@ class _Local:
     """The model to compute a sharded step with: a replica (its meta
     module made when the step is built) whose parameters are, at each
     call, this rank's tensors under `compute_placements` (gathered over
-    the batch axes a weight is stored split on, this rank's shard where
-    it is split over the model axis), and the step's `TensorParallel`
-    context bound to them."""
+    the batch axes a weight is stored split on, but for the logical axes
+    in `keep`; this rank's shard where it is split over the model axis),
+    and the step's `TensorParallel` context bound to them."""
 
-    def __init__(self, model: Model, param_sh: dict, plan: ShardingPlan):
+    def __init__(self, model: Model, param_sh: dict, plan: ShardingPlan,
+                 keep: frozenset = frozenset()):
         with torch.device("meta"):
             self.meta = model.init(device="meta")
-        self.placements = {n: compute_placements(sh, plan) for n, sh in param_sh.items()}
-        self.tp = tensor_parallel(param_sh, plan)
+        axes = model.param_axes()
+        self.placements = {n: compute_placements(sh, plan, axes[n], keep)
+                           for n, sh in param_sh.items()}
+        self.tp = tensor_parallel(param_sh, plan, axes, keep)
         self.slots = {n: n.rpartition(".") for n in param_sh}
 
     @torch.no_grad()
@@ -356,7 +327,7 @@ class _Local:
             t = t.detach().requires_grad_(requires_grad)
             owner, _, leaf = self.slots[n]
             self.meta.get_submodule(owner)._parameters[leaf] = local[n] = t
-        return self.meta, local, None if self.tp is None else self.tp.bind(local)
+        return self.meta, local, self.tp.bind(local)
 
 
 def _grad_norm(grads: dict, moments: dict, mesh: DeviceMesh) -> torch.Tensor:
@@ -419,7 +390,8 @@ def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, trian
             ce, aux = model.loss_parts(module, mb, triangular=triangular, tp=tp)
             part = ce * share
             if model.cfg.family == "moe" and model.cfg.n_experts:
-                part = part + aux * _group_share(model.cfg, mb, shards)
+                # every rank's aux is the global groups' mean (`models.moe`)
+                part = part + aux / shards
             loss = loss + part.detach()
             grads = [a + g for a, g in zip(
                 grads, torch.autograd.grad(part, list(weights.values())))]
@@ -548,13 +520,26 @@ def build_prefill_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, *,
     return sharded_prefill, param_sh
 
 
+def _split_caches(caches: dict, tp, mesh: DeviceMesh) -> frozenset:
+    """The caches whose sequence is split over the context's model axis
+    (their placement there is a ``Shard``: the attention caches are
+    split over it on their sequence only)."""
+    if tp.size == 1:
+        return frozenset()
+    names = mesh.mesh_dim_names or ()
+    at = next(i for i, a in enumerate(names) if mesh.get_group(a).group_name == tp.group)
+    return frozenset(k for k, c in caches.items() if isinstance(c.placements[at], Shard))
+
+
 def build_serve_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, seq_len: int):
     """``(serve, param_sh)``: ``serve(module, caches, tokens, index) ->
     (logits, caches)``, one decode token at the absolute position `index`
     (a Python int); the caches are written in place.  On a mesh of more
     than one device the caches are DTensors placed by
-    `cache_shardings_for`: the step gathers them with the weights,
-    decodes the whole batch and writes each rank's shard back."""
+    `cache_shardings_for` and the tokens the global batch (a tensor, or
+    a DTensor over the batch axes): each rank decodes its batch rows
+    against its slices of the caches, on its shards of the weights, and
+    the logits are a DTensor as the prefill's."""
     param_sh, _ = _param_shardings(model, mesh, plan)
     if mesh.size() == 1:
         def serve(module: nn.Module, caches: dict, tokens: torch.Tensor, index: int):
@@ -562,18 +547,17 @@ def build_serve_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, seq_len
 
         return serve, param_sh
 
-    replica = _Gathered(model)
-    replicated = (Replicate(),) * mesh.ndim
+    local_model = _Local(model, param_sh, plan, SERVE_SHARDED_ON_BATCH)
+    leaves, _ = _batch_layout(mesh, plan, 0)
+    vocab = compute_placements(param_sh["embed"], plan)
+    out = tuple(Shard(2) if isinstance(v, Shard) else b for b, v in zip(leaves, vocab))
 
     def sharded_serve(module: nn.Module, caches: dict, tokens, index: int):
-        full = {k: c.full_tensor() for k, c in caches.items()}
-        if isinstance(tokens, DTensor):
-            tokens = tokens.full_tensor()
-        logits, full = model.decode_step(replica(module), full, tokens, index, seq_len)
-        with torch.no_grad():
-            for k, c in caches.items():
-                new = DTensor.from_local(full[k], mesh, replicated)
-                c.to_local().copy_(new.redistribute(mesh, c.placements).to_local())
-        return DTensor.from_local(logits, mesh, replicated), caches
+        local, _, tp = local_model(module, False)
+        tp = dataclasses.replace(tp, caches=_split_caches(caches, tp, mesh))
+        rows = _local_batch({"tokens": tokens}, mesh, leaves)["tokens"]
+        logits, _ = model.decode_step(local, {k: c.to_local() for k, c in caches.items()},
+                                      rows, index, seq_len, tp)
+        return DTensor.from_local(logits, mesh, out), caches
 
     return sharded_serve, param_sh

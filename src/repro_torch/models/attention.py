@@ -17,6 +17,17 @@ Decode attends one token against a KV cache in either layout: ``bskd``
 ([B, S_cache, KV, D]) or head-major ``bksd`` ([B, KV, S_cache, D]), whose
 (B, KV) leading dims are the einsum's batch dims.  The cache writes go in
 place; the reference donates its caches, so both give the same values.
+
+Sequence-parallel decode (`DECODE_PLAN`: the cache sequence split over
+the model axis) runs the same softmax on chunks of the cache
+(`chunked_decode_attention` takes them in one process, `decode_attention`
+and `decode_attention_bksd` one rank's chunk with its ``offset`` and
+`combine`, the ranks' collectives): each chunk's scores, the max
+combined over the chunks, then the sum of exponentials, then each
+chunk's normalised probabilities (rounded to the cache dtype where
+``cast_f32=False``, as the one-chunk form) times its values, summed.
+These two passes round where the one-chunk form rounds; a one-pass
+(max, sum, accumulator) combine would round the unnormalised values.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 __all__ = [
     "NEG",
     "chunked_causal_attention",
+    "chunked_decode_attention",
     "decode_attention",
     "decode_attention_bksd",
     "full_cross_attention",
@@ -183,22 +195,89 @@ def _decode_softmax_pv(qg, k_cache, v_cache, length: int, scale: float,
     return torch.einsum(pv, p, v_cache.float())                # [B,KV,G,1,D]
 
 
+def _stacked(op):
+    """A combine of one value per chunk, all in this process."""
+    return lambda xs: op(torch.stack(xs), 0)
+
+
+def _split_softmax_pv(qg, ks, vs, offsets, length: int, scale: float, cast_f32: bool,
+                      scores: str, pv: str, combine_max, combine_sum) -> torch.Tensor:
+    """`_decode_softmax_pv` over the cache in chunks (`ks`, `vs`, the
+    first global position of each in `offsets`), in two passes:
+    `combine_max` and `combine_sum` combine a list of one value per
+    chunk over every chunk (in this process or over the ranks)."""
+    s = []
+    for k, off in zip(ks, offsets):
+        si = torch.einsum(scores, qg.float(), k.float()) * scale
+        pos = off + torch.arange(si.shape[-1], device=si.device)
+        s.append(torch.where(pos < length, si, NEG))
+    top = combine_max([si.amax(-1, keepdim=True) for si in s])
+    e = [torch.exp(si - top) for si in s]
+    total = combine_sum([ei.sum(-1, keepdim=True) for ei in e])
+    out = []
+    for ei, v in zip(e, vs):
+        p = ei / total
+        if not cast_f32:
+            p = p.to(v.dtype).float()
+        out.append(torch.einsum(pv, p, v.float()))
+    return combine_sum(out)                                        # [B,KV,G,1,D]
+
+
+#: the einsums of each cache layout: (the cache's KV-head dim, scores, PV)
+_LAYOUTS = {
+    "bskd": (2, "bqkgd,bskd->bkgqs", "bkgqs,bskd->bkgqd"),
+    "bksd": (1, "bqkgd,bksd->bkgqs", "bkgqs,bksd->bkgqd"),
+}
+
+
+def _decode(q, k_caches, v_caches, offsets, length, cast_f32, layout, combine):
+    b, _, h, d = q.shape
+    kv_dim, scores, pv = _LAYOUTS[layout]
+    n_kv = k_caches[0].shape[kv_dim]
+    qg = _group_q(q, n_kv)
+    if combine is None:
+        out = _decode_softmax_pv(qg, k_caches[0], v_caches[0], length, 1.0 / (d**0.5),
+                                 cast_f32, scores, pv)
+    else:
+        out = _split_softmax_pv(qg, k_caches, v_caches, offsets, length, 1.0 / (d**0.5),
+                                cast_f32, scores, pv, *combine)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
+
+
+def chunked_decode_attention(
+    q: torch.Tensor,          # [B, 1, H, D]
+    k_chunks,                 # [B, S_c, KV, D] each (bskd) or [B, KV, S_c, D] (bksd)
+    v_chunks,
+    length: int,
+    cast_f32: bool = True,
+    layout: str = "bskd",
+) -> torch.Tensor:
+    """`decode_attention` (or `decode_attention_bksd`) over a cache given
+    as consecutive chunks of its sequence, combined in this process: the
+    plain version of the sequence-parallel decode, one chunk a rank."""
+    offsets, off = [], 0
+    for k in k_chunks:
+        offsets.append(off)
+        off += k.shape[1 if layout == "bskd" else 2]
+    return _decode(q, list(k_chunks), list(v_chunks), offsets, length, cast_f32, layout,
+                   (_stacked(torch.amax), _stacked(torch.sum)))
+
+
 def decode_attention_bksd(
     q: torch.Tensor,          # [B, 1, H, D]
     k_cache: torch.Tensor,    # [B, KV, S_cache, D]  (head-major layout)
     v_cache: torch.Tensor,
     length: int,
     cast_f32: bool = True,
+    *,
+    offset: int = 0,
+    combine=None,
 ) -> torch.Tensor:
     """Head-major-cache decode attention: the cache's (B, KV) leading dims
-    are exactly the einsum batch dims."""
-    b, n_kv, _, d = k_cache.shape
-    h = q.shape[2]
-    out = _decode_softmax_pv(
-        _group_q(q, n_kv), k_cache, v_cache, length, 1.0 / (d**0.5), cast_f32,
-        "bqkgd,bksd->bkgqs", "bkgqs,bksd->bkgqd",
-    )
-    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
+    are exactly the einsum batch dims.  `combine`: (max, sum) over the
+    ranks of a list of this rank's one value, where the cache is this
+    rank's chunk of the sequence from global position `offset`."""
+    return _decode(q, [k_cache], [v_cache], [offset], length, cast_f32, "bksd", combine)
 
 
 def update_kv_cache_bksd(k_cache, v_cache, k_new, v_new, index: int):
@@ -214,15 +293,13 @@ def decode_attention(
     v_cache: torch.Tensor,
     length: int,              # current valid cache length (incl. new token)
     cast_f32: bool = True,
+    *,
+    offset: int = 0,
+    combine=None,
 ) -> torch.Tensor:
-    """Single-token attention against a (possibly partially filled) cache."""
-    b, _, n_kv, d = k_cache.shape
-    h = q.shape[2]
-    out = _decode_softmax_pv(
-        _group_q(q, n_kv), k_cache, v_cache, length, 1.0 / (d**0.5), cast_f32,
-        "bqkgd,bskd->bkgqs", "bkgqs,bskd->bkgqd",
-    )
-    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(q.dtype)
+    """Single-token attention against a (possibly partially filled) cache;
+    `offset` and `combine` as `decode_attention_bksd`'s."""
+    return _decode(q, [k_cache], [v_cache], [offset], length, cast_f32, "bskd", combine)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, index: int):

@@ -18,6 +18,10 @@ Decode keeps the reference's cache tree ``{"k", "v", "cross_k",
 layout (the reference ignores ``cache_layout`` for this family).  The
 self-attention caches are written in place; the cross K/V are computed
 once, from the encoder pass, by `init_encdec_caches`, and only read.
+With a serve step's `TensorParallel` context both attentions run on the
+rank's slices of their caches (`transformer.tp_decode_attention`; the
+cross K/V split over the model axis along the encoder's time, read
+with no mask).
 
 Two behaviours of the reference are kept (`ROADMAP.md` §C):
 - each decode step adds the sinusoid of position 0, whatever its index,
@@ -56,6 +60,7 @@ from .transformer import (
     flat_axes,
     torch_dtype,
     tp_attention,
+    tp_decode_attention,
 )
 
 __all__ = [
@@ -126,7 +131,7 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, tp=None):
         b, t, _ = x.shape
-        if tp is not None:
+        if tp is not None and tp.size > 1:
             h = self.attn_norm(x)
             return self._mlp(x + tp_attention(tp, self.cfg, self.attn, h, h,
                                               full_cross_attention), tp)
@@ -166,7 +171,7 @@ class DecoderLayer(EncoderLayer):
                 triangular=triangular,
             )
 
-        if tp is not None:
+        if tp is not None and tp.size > 1:
             h = self.attn_norm(x)
             x = x + tp_attention(tp, cfg, self.attn, h, h, causal)
             x = x + tp_attention(tp, cfg, self.cross, self.cross_norm(x), enc_out,
@@ -175,12 +180,20 @@ class DecoderLayer(EncoderLayer):
         x = x + causal(*self._qkv(x)).reshape(b, s, cfg.q_dim) @ self.attn.wo
         return self._mlp(self._cross(x, *self.cross_kv(enc_out)))
 
-    def decode(self, x_tok, layer_cache, index: int):
+    def decode(self, x_tok, layer_cache, index: int, tp=None):
         """One token at position `index`: its k, v written into the
         layer's cache slices in place, attention over ``index + 1``
         positions, then cross-attention over the stored cross K/V."""
         cfg = self.cfg
         b = x_tok.shape[0]
+        if tp is not None:
+            x = x_tok + tp_decode_attention(tp, cfg, self.attn, self.attn_norm(x_tok),
+                                            layer_cache, index + 1, write=index)
+            t_enc = layer_cache["cross_k"].shape[1] * (
+                tp.size if "cross_k" in tp.caches else 1)
+            x = x + tp_decode_attention(tp, cfg, self.cross, self.cross_norm(x), layer_cache,
+                                        t_enc, keys=("cross_k", "cross_v"))
+            return self._mlp(x, tp)
         q, k, v = self._qkv(x_tok)
         kc, vc = update_kv_cache(layer_cache["k"], layer_cache["v"], k, v, index)
         out = decode_attention(q, kc, vc, index + 1)
@@ -267,16 +280,17 @@ def init_encdec_caches(model: EncDecLM, frames: torch.Tensor, seq_len: int) -> d
 
 @torch.inference_mode()
 def decode_step_encdec(model: EncDecLM, caches: dict, tokens: torch.Tensor,
-                       index: int) -> tuple[torch.Tensor, dict]:
+                       index: int, tp=None) -> tuple[torch.Tensor, dict]:
     """One serve step of tokens [B, 1] at position `index` (a Python
     int): (logits [B, 1, Vpad] f32, caches), the self-attention caches
     written in place.  Adds the sinusoid of position 0 at every index,
-    as the reference does."""
+    as the reference does.  `tp`: a serve step's context
+    (`transformer.decode_step_lm`)."""
     cfg = model.cfg
     cd = torch_dtype(cfg.compute_dtype)
-    x = embed_tokens(model.embed, tokens, cd)
+    x = embed_tokens(model.embed, tokens, cd, tp)
     x = x + sinusoidal_positions(1, cfg.d_model, x.device).to(cd)[None]
     for i, layer in enumerate(model.dec_layers):
-        x = layer.decode(x, {name: c[i] for name, c in caches.items()}, index)
+        x = layer.decode(x, {name: c[i] for name, c in caches.items()}, index, tp)
     x = model.dec_final_norm(x)
-    return lm_logits(x, model.embed, None, cfg.vocab_size), caches
+    return lm_logits(x, model.embed, None, cfg.vocab_size, tp), caches

@@ -22,6 +22,7 @@ __all__ = [
     "cross_entropy_loss",
     "dense_init",
     "embed_tokens",
+    "gathered_columns",
     "lm_logits",
     "mlp_axes",
     "mlp_shapes",
@@ -164,6 +165,29 @@ def apply_mlp(p, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     if act == "geglu":
         return tp.reduce((F.gelu(x @ p.wi_gate, approximate="tanh") * (x @ p.wi_up)) @ p.wo)
     return tp.reduce(F.gelu(x @ p.wi + p.bi, approximate="tanh") @ p.wo) + p.bo
+
+
+def gathered_columns(tp, x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w (+ b)`` whole on every rank of the model axis (`tp`), each
+    rank computing its part of the columns (decode; no gradient is taken
+    through it): on its shard of a split `w`; of a whole `w`, on its even
+    share of the largest prefix of the columns the axis divides, the rest
+    computed whole on every rank."""
+    def product(w_, b_):
+        y = x @ w_
+        return y if b_ is None else y + b_
+
+    if tp.size == 1:
+        return product(w, b)
+    if tp.dim(w) is not None:
+        return tp.gather(product(w, b), -1)
+    n = w.shape[-1] // tp.size
+    part, rest = slice(tp.start(n), tp.start(n) + n), slice(n * tp.size, None)
+    parts = [tp.gather(product(w[:, part], None if b is None else b[part]), -1)] if n else []
+    if n * tp.size < w.shape[-1]:
+        parts.append(product(w[:, rest], None if b is None else b[rest]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
 # ---------------------------------------------------------------------------

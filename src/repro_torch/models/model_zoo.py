@@ -5,7 +5,7 @@
   loss(module, batch, triangular=False)   -> scalar     (train objective)
   loss_parts(module, batch, triangular=False, tp=None) -> (ce, aux), loss = ce + aux
   forward(module, batch, triangular=False, tp=None) -> logits    (prefill compute)
-  decode_step(module, caches, tokens, index, seq_len) -> (logits, caches)
+  decode_step(module, caches, tokens, index, seq_len, tp=None) -> (logits, caches)
   init_caches(module, batch, seq_len, device=None, frames=None) -> caches
   input_specs(shape)                 -> batch of meta tensors
   cache_specs(shape)                 -> caches of meta tensors
@@ -20,11 +20,12 @@ over `frames` (zeros [B, max(seq_len // enc_seq_divisor, 1), D] in the
 compute dtype when none are given); the other families ignore them.
 ``index`` of `decode_step` is a Python int.
 
-`tp` of `loss_parts` and `forward` is a step's
+`tp` of `loss_parts`, `forward` and `decode_step` is a step's
 `distributed.tensor_parallel.TensorParallel` context: the module's
 weights are then this rank's shards where the plan splits them over the
 model axis, and the logits this rank's vocab columns where it splits
-the vocab (None: the plain model).
+the vocab (None: the plain model); in `decode_step` the tokens and
+caches are this rank's batch rows, the caches its slices.
 
 `input_specs` and `cache_specs` give a `ShapeConfig`'s batch and caches
 as tensors on the ``meta`` device (shape and dtype, no storage: the
@@ -149,8 +150,8 @@ def _build_encdec(cfg: ModelConfig) -> Model:
     def forward(module, batch, *, triangular=False, tp=None):
         return module(batch["frames"], batch["tokens"], triangular=triangular, tp=tp)
 
-    def decode_step(module, caches, tokens, index: int, seq_len: int):
-        return encdec.decode_step_encdec(module, caches, tokens, index)
+    def decode_step(module, caches, tokens, index: int, seq_len: int, tp=None):
+        return encdec.decode_step_encdec(module, caches, tokens, index, tp)
 
     def init_caches(module, batch: int, seq_len: int, device=None, frames=None):
         if frames is None:
@@ -187,8 +188,8 @@ def build_model(cfg: ModelConfig) -> Model:
         return module(batch["tokens"], frontend_embeds=batch.get("frontend_embeds"),
                       triangular=triangular, tp=tp)
 
-    def decode_step(module, caches, tokens, index: int, seq_len: int):
-        return tfm.decode_step_lm(module, caches, tokens, index, seq_len)
+    def decode_step(module, caches, tokens, index: int, seq_len: int, tp=None):
+        return tfm.decode_step_lm(module, caches, tokens, index, seq_len, tp)
 
     def init_caches(module, batch: int, seq_len: int, device=None, frames=None):
         if device is None:

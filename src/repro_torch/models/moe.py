@@ -136,6 +136,16 @@ def dropped(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     return (per_expert - cap).clamp_min(0).sum()
 
 
+def _gathers(p: MoE, tokens: int, cfg, tp) -> bool:
+    """Whether the block gathers its tokens over the batch axes: where
+    this rank's tokens are no whole number of the global array's groups,
+    or an expert weight is split over a batch axis (a serve step)."""
+    if tp is None or tp.batch_size == 1:
+        return False
+    return (tp.batch_dim(p.wo) is not None
+            or tokens % min(cfg.moe_group, tokens * tp.batch_size) != 0)
+
+
 def apply_moe(p: MoE, x: torch.Tensor, cfg, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux_loss []).
 
@@ -144,10 +154,24 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg, tp=None) -> tuple[torch.Tensor, torc
     multiple of the group size the last group is padded with zero rows,
     which take slots and enter the aux loss, as in the reference.  `tp`:
     expert parallelism over the model axis (`_group`).
+
+    The reference groups the global token array.  Where the batch is
+    split over ranks (``tp.batch``) and this rank's tokens are no whole
+    number of those groups, or the experts' hidden dim is split over a
+    batch axis, the block gathers its input over the batch axes, routes
+    the global groups (the same on every rank, so the aux is the global
+    one), computes on this rank's expert shards and keeps this rank's
+    rows, reduce-scattered over the axes the hidden dim is split on.
     """
     b, s, d = x.shape
+    gather = _gathers(p, b * s, cfg, tp)
+    if gather:
+        x = tp.gather_batch(x, 0)
+    rows = x.shape[0]
     xg, cap = _groups(x, cfg)
     outs = [_group(p, group, cfg, cap, tp) for group in xg]
-    y = torch.cat([o[0] for o in outs])[:b * s].reshape(b, s, d)
+    y = torch.cat([o[0] for o in outs])[:rows * s].reshape(rows, s, d)
     aux = torch.stack([o[1] for o in outs]).mean()
+    if gather:
+        y = tp.scatter_batch(y, 0, p.wo)
     return y, aux

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init
+from .layers import dense_init, gathered_columns
 
 __all__ = ["SSM", "apply_ssm", "decode_ssm", "init_ssm_cache", "ssm_axes"]
 
@@ -186,16 +186,30 @@ def init_ssm_cache(cfg, batch: int, device) -> dict:
     }
 
 
-def decode_ssm(p: SSM, cache: dict, x: torch.Tensor, cfg):
-    """One-token step. x: [B, 1, D] -> (y [B, 1, D], new cache)."""
+def decode_ssm(p: SSM, cache: dict, x: torch.Tensor, cfg, tp=None):
+    """One-token step. x: [B, 1, D] -> (y [B, 1, D], new cache).
+
+    With `tp` (a serve step's context; the caches are this rank's batch
+    rows, whole over the model axis): ``in_proj`` a column product
+    gathered whole (`layers.gathered_columns`), the depthwise conv on
+    this rank's channels where its weights are split, gathered, the
+    recurrence whole on every rank, and ``out_proj`` a row product on
+    this rank's slice of the gated norm, all-reduced."""
     b = x.shape[0]
     d_inner, h, hp, n, conv_dim = _dims(cfg)
-    zxbcdt = x[:, 0, :] @ p.in_proj
+    split = lambda w: tp is not None and tp.dim(w) is not None
+    if tp is not None:
+        zxbcdt = gathered_columns(tp, x[:, 0, :], p.in_proj)
+    else:
+        zxbcdt = x[:, 0, :] @ p.in_proj
     z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xc, b_, c_], dim=-1)                       # [B, convdim]
     window = torch.cat([cache["conv"], conv_in[:, None, :].float()], dim=1)  # [B,W,convdim]
     w = p.conv_w.float()
-    conv_out = F.silu((window * w[None]).sum(dim=1) + p.conv_b)
+    if split(p.conv_w):
+        conv_out = tp.gather(F.silu((tp.split(window, -1) * w[None]).sum(dim=1) + p.conv_b), -1)
+    else:
+        conv_out = F.silu((window * w[None]).sum(dim=1) + p.conv_b)
     xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
     a = -torch.exp(p.A_log)
@@ -206,6 +220,9 @@ def decode_ssm(p: SSM, cache: dict, x: torch.Tensor, cfg):
     state = cache["state"] * decay[:, :, None, None] + add
     y = torch.einsum("bn,bhpn->bhp", c_, state)
     y = y + p.D[None, :, None] * xh
-    y = _gated_norm(p, y.reshape(b, d_inner), z)
-    out = y.to(x.dtype) @ p.out_proj
+    y = _gated_norm(p, y.reshape(b, d_inner), z, tp)
+    if split(p.out_proj):
+        out = tp.reduce(y.to(x.dtype) @ p.out_proj)
+    else:
+        out = y.to(x.dtype) @ p.out_proj
     return out[:, None, :], {"state": state, "conv": window[:, 1:, :]}

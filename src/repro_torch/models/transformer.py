@@ -34,6 +34,11 @@ caches in the ``bskd`` or ``bksd`` layout.  Each layer's slice is written
 in place and the same dict returned; the reference donates its caches,
 so the values are the same.  ``index`` is a Python int, so the ring
 buffer's write position and the valid length need no device sync.
+
+With a `TensorParallel` context the decode runs on this rank's batch
+rows, its shards of the weights and its slices of the caches
+(`tp_decode_attention`: the KV caches' sequence split over the model
+axis, `DECODE_PLAN`; the SSM's caches split over the batch only).
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from .layers import (
     cross_entropy_loss,
     dense_init,
     embed_tokens,
+    gathered_columns,
     lm_logits,
     mlp_axes,
     mlp_shapes,
@@ -80,6 +86,7 @@ __all__ = [
     "lm_loss_parts",
     "params_from_jax",
     "tp_attention",
+    "tp_decode_attention",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -212,22 +219,28 @@ class Block(nn.Module):
                 remat_qblock=cfg.attn_remat,
             )
 
-        if tp is not None:
+        if tp is not None and tp.size > 1:
             h = self.attn_norm(x)
             return tp_attention(tp, cfg, self.attn, h, h, core, bias=cfg.qkv_bias,
                                 rope=lambda t: apply_rope(t, positions, cfg.rope_theta))
         q, k, v = self._qkv(x, positions)
         return core(q, k, v).reshape(b, s, cfg.q_dim) @ self.attn.wo
 
-    def _attention_decode(self, x_tok, layer_cache, pos, index, cache_len):
+    def _attention_decode(self, x_tok, layer_cache, pos, index, cache_len, tp=None):
         """x_tok: [B, 1, D] at absolute position `index` (`pos` holds it
         on the device); writes k, v into the layer's cache slices."""
         cfg = self.cfg
         b = x_tok.shape[0]
-        # rope at the absolute position, before the write
-        q, k, v = self._qkv(x_tok, pos)
         write = index % cache_len  # ring buffer for sliding windows
         length = min(index + 1, cache_len)
+        if tp is not None:
+            return tp_decode_attention(
+                tp, cfg, self.attn, self.attn_norm(x_tok), layer_cache, length,
+                write=write, bias=cfg.qkv_bias, cast_f32=cfg.attn_cast_f32,
+                layout=cfg.cache_layout,
+                rope=lambda t: apply_rope(t, pos, cfg.rope_theta))
+        # rope at the absolute position, before the write
+        q, k, v = self._qkv(x_tok, pos)
         if cfg.cache_layout == "bksd":
             kc, vc = update_kv_cache_bksd(layer_cache["k"], layer_cache["v"], k, v, write)
             out = decode_attention_bksd(q, kc, vc, length, cast_f32=cfg.attn_cast_f32)
@@ -236,10 +249,10 @@ class Block(nn.Module):
             out = decode_attention(q, kc, vc, length, cast_f32=cfg.attn_cast_f32)
         return out.reshape(b, 1, cfg.q_dim) @ self.attn.wo
 
-    def _ssm_decode(self, h, layer_cache):
+    def _ssm_decode(self, h, layer_cache, tp=None):
         out, new = ssm_lib.decode_ssm(
             self.ssm, {"state": layer_cache["ssm_state"], "conv": layer_cache["conv"]},
-            h, self.cfg,
+            h, self.cfg, tp,
         )
         layer_cache["ssm_state"].copy_(new["state"])
         layer_cache["conv"].copy_(new["conv"])
@@ -274,21 +287,21 @@ class Block(nn.Module):
                 x = x + ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
         return self._feed_forward(x, tp)
 
-    def decode(self, x_tok, layer_cache, pos, index: int, cache_len: int):
+    def decode(self, x_tok, layer_cache, pos, index: int, cache_len: int, tp=None):
         """One layer of one decode step; the layer's caches (views into
         the stacked tensors) are written in place."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            attn_out = self._attention_decode(x_tok, layer_cache, pos, index, cache_len)
-            ssm_out = self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
+            attn_out = self._attention_decode(x_tok, layer_cache, pos, index, cache_len, tp)
+            ssm_out = self._ssm_decode(self.ssm_norm(x_tok), layer_cache, tp)
             x_tok = x_tok + self._mix(attn_out, ssm_out)
         else:
             if _has_attention(cfg):
                 x_tok = x_tok + self._attention_decode(
-                    x_tok, layer_cache, pos, index, cache_len)
+                    x_tok, layer_cache, pos, index, cache_len, tp)
             if _has_ssm(cfg):
-                x_tok = x_tok + self._ssm_decode(self.ssm_norm(x_tok), layer_cache)
-        return self._feed_forward(x_tok)[0]
+                x_tok = x_tok + self._ssm_decode(self.ssm_norm(x_tok), layer_cache, tp)
+        return self._feed_forward(x_tok, tp)[0]
 
 
 def _product(x, w, b):
@@ -375,6 +388,49 @@ def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None):
     if heads:
         return tp.reduce(core(q, k, v).reshape(b, s, -1) @ a.wo)
     out = _split_core(tp, core, q, k, v).reshape(b, s, -1)
+    if tp.dim(a.wo) is not None:
+        return tp.reduce(tp.split(out, -1) @ a.wo)
+    return out @ a.wo
+
+
+def tp_decode_attention(tp, cfg, a, h, layer_cache: dict, length: int, *,
+                        keys=("k", "v"), write: int | None = None, rope=None,
+                        bias: bool = False, cast_f32: bool = True,
+                        layout: str = "bskd") -> torch.Tensor:
+    """One token's attention on this rank of the model axis (`tp`) against
+    its slice of a layer's cache: `h` [B, 1, D] (normed; this rank's
+    batch rows), ``a`` the layer's `Attention` weights (its qkv biases
+    read where `bias`), ``layer_cache[keys[0]]`` and ``[keys[1]]`` the K
+    and V caches in `layout`, split over the model axis along the
+    sequence where ``keys[0]`` is in ``tp.caches`` (this rank's share of
+    the positions, from ``tp.rank`` times its length), else whole;
+    `length` the valid global length.  Returns [B, 1, D], after the
+    all-reduce of the ``wo`` row product.
+
+    The projections are column products (`layers.gathered_columns`),
+    gathered whole: q for every head, and, where `write` is a position,
+    the token's k and v, which only the rank whose slice holds `write`
+    writes.  The attention runs over the rank's positions for every head,
+    its softmax combined over the ranks (`attention.decode_attention`),
+    then ``wo`` is a row product on the rank's slice of the heads."""
+    b, hd = h.shape[0], cfg.head_dim
+    bq, bk, bv = (a.bq, a.bk, a.bv) if bias else (None, None, None)
+    kc, vc = layer_cache[keys[0]], layer_cache[keys[1]]
+    local = kc.shape[1 if layout == "bskd" else 2]
+    split = keys[0] in tp.caches
+    offset = tp.rank * local if split else 0
+    q = gathered_columns(tp, h, a.wq, bq).reshape(b, 1, -1, hd)
+    if rope is not None:
+        q = rope(q)
+    if write is not None:  # every rank gathers k and v; the owner writes them
+        k = gathered_columns(tp, h, a.wk, bk).reshape(b, 1, -1, hd)
+        v = gathered_columns(tp, h, a.wv, bv).reshape(b, 1, -1, hd)
+        if offset <= write < offset + local:
+            update = update_kv_cache if layout == "bskd" else update_kv_cache_bksd
+            update(kc, vc, rope(k) if rope is not None else k, v, write - offset)
+    combine = (lambda xs: tp.all_max(xs[0]), lambda xs: tp.all_sum(xs[0])) if split else None
+    attend = decode_attention if layout == "bskd" else decode_attention_bksd
+    out = attend(q, kc, vc, length, cast_f32, offset=offset, combine=combine).reshape(b, 1, -1)
     if tp.dim(a.wo) is not None:
         return tp.reduce(tp.split(out, -1) @ a.wo)
     return out @ a.wo
@@ -589,18 +645,21 @@ def decode_step_lm(
     tokens: torch.Tensor,   # [B, 1] current tokens
     index: int,             # absolute position of this token
     seq_len: int,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One serve step: (logits [B, 1, Vpad] f32, caches), the caches
-    written in place."""
+    written in place.  With `tp` (a serve step's context) the tokens are
+    this rank's batch rows, the weights and caches its shards and slices,
+    and the logits its vocab columns where the vocab is split."""
     cfg = model.cfg
-    x = embed_tokens(model.embed, tokens, torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(model.embed, tokens, torch_dtype(cfg.compute_dtype), tp)
     cache_len = cache_len_for(cfg, seq_len)
     pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
     for i, layer in enumerate(model.layers):
         layer_cache = {name: c[i] for name, c in caches.items()}
-        x = layer.decode(x, layer_cache, pos, index, cache_len)
+        x = layer.decode(x, layer_cache, pos, index, cache_len, tp)
     x = model.final_norm(x)
-    return lm_logits(x, model.embed, model.head, cfg.vocab_size), caches
+    return lm_logits(x, model.embed, model.head, cfg.vocab_size, tp), caches
 
 
 #: the per-layer stacks of the reference's trees: ``layers`` of the

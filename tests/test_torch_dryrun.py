@@ -145,7 +145,13 @@ def test_record_the_tensor_parallel_gap(rows):
     prints them).  Under BASELINE_PLAN each rank computes on its shards
     of the weights, as the reference's Megatron step: the train cell's
     per-device FLOPs are within 0.75-1.25x the reference's, and its
-    all-gather bytes at least 4x below the gathered-weights step's."""
+    all-gather bytes at least 4x below the gathered-weights step's.
+    Under DECODE_PLAN each rank decodes its batch rows against its
+    slices of the caches on its shards of the weights: phi3.5-moe's
+    decode_32k temp bytes fit 80 GiB a device and its all-gathers move
+    under 1e9 bytes (the gathered step's: 1.1167e12 and 6.7235e11), and
+    mamba2-130m's decode_32k runs at most 2x the reference's per-device
+    FLOPs on both meshes (the gathered step's: 93.91x and 121.17x)."""
     for key in OK_ROWS:
         got, want = rows["port"][key], rows["ref"][key]
         g, w = got["costs"], want["costs"]
@@ -164,6 +170,12 @@ def test_record_the_tensor_parallel_gap(rows):
     ratio = got["flops"] / rows["ref"][train]["costs"]["flops"]
     assert 0.75 <= ratio <= 1.25
     assert 4 * got["coll_by_kind"]["all-gather"] <= GATHERED_WEIGHTS_ALL_GATHER
+    moe = rows["port"][("single", "phi3.5-moe-42b-a6.6b", "decode_32k")]
+    assert moe["memory"]["temp_bytes"] < 80 * 2**30
+    assert moe["costs"]["coll_by_kind"]["all-gather"] < 1e9
+    for mesh in ("single", "multi"):
+        key = (mesh, "mamba2-130m", "decode_32k")
+        assert rows["port"][key]["costs"]["flops"] <= 2 * rows["ref"][key]["costs"]["flops"]
 
 
 # -- the tables, on the reference's rows ---------------------------------------

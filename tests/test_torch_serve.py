@@ -12,7 +12,13 @@ except where a dtype is named.  Tolerances (stated where used):
 - cache writes: exact;
 - decode steps: logits and caches atol 1e-5, rtol 1e-5 (dense, moe,
   vlm) and atol 1e-5, rtol 1e-4 (ssm, hybrid: the SSD state);
-- greedy tokens and the serve driver's sample: equal.
+- greedy tokens and the serve driver's sample: equal;
+- the sequence-parallel softmax's plain version (`chunked_decode_attention`)
+  against the one-chunk form: atol/rtol 1e-6 in f32 (the sums' order);
+  in bf16 within one bf16 rounding (atol 1e-2, rtol 2**-7): with
+  cast_f32=False the probabilities round to bf16 where the one-chunk
+  form rounds them, after normalising, but a sum over the chunks can
+  put one on the other side of a rounding boundary.
 """
 import dataclasses
 import json
@@ -88,6 +94,33 @@ def test_decode_attention(layout, cast_f32, dtype):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
     else:
         np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=2**-7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cast_f32", [True, False])
+@pytest.mark.parametrize("chunks", [1, 2, 3, 6])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_chunked_decode_attention_equals_the_one_chunk_form(layout, chunks, cast_f32, dtype):
+    """The sequence-parallel decode's softmax in one process: the 24
+    positions of `test_decode_attention`'s cache in `chunks` equal chunks
+    (filled to 11, so with 3 and 6 chunks whole chunks are masked), the
+    max, the sum of exponentials and the PV product combined over the
+    chunks, against `decode_attention` on the whole cache."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    k, v = _cache(layout, rng), _cache(layout, rng)
+    port = LAYOUTS[layout][0]
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    seq = 1 if layout == "bskd" else 2
+    got = attention.chunked_decode_attention(q, k.chunk(chunks, seq), v.chunk(chunks, seq), 11,
+                                             cast_f32=cast_f32, layout=layout)
+    want = port(q, k, v, 11, cast_f32=cast_f32)
+    assert got.dtype == td and got.shape == want.shape
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2**-7)
 
 
 @pytest.mark.parametrize("index", [0, 7, 23])
@@ -289,3 +322,52 @@ def test_serve_module_prints_the_reference_keys():
     assert set(out) == {"arch", "batch", "decoded", "tokens_per_second",
                         "last_window_labels", "last_window_routing", "sample_output"}
     assert out["decoded"] == 8 and len(out["sample_output"]) == 8
+
+
+#: the serve driver on two Gloo ranks under torchrun, against one process:
+#: the dense family, the MoE (its blocks gather their tokens over `data`,
+#: the experts' hidden dim split there), the SSM and the encoder-decoder
+TORCHRUN_ARCHS = ["paper-gpt-125m", "phi3.5-moe-42b-a6.6b", "mamba2-130m", "whisper-base"]
+
+
+@pytest.fixture(scope="module")
+def torchrun_runs():
+    """`torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve
+    --device cpu --reduced` for each of `TORCHRUN_ARCHS`, all at once, and
+    each one's one-process run in this process meanwhile."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    argv = ["--reduced", "--batch", "4", "--prompt-len", "8", "--decode", "8", "--device", "cpu"]
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.serve", "--arch", arch, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch in TORCHRUN_ARCHS}
+    try:
+        one = {arch: serve.run(serve.make_argparser().parse_args(["--arch", arch, *argv]))
+               for arch in TORCHRUN_ARCHS}
+        out = {}
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            assert proc.returncode == 0, stderr[-3000:]
+            out[arch] = json.loads(stdout)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out, one
+
+
+@pytest.mark.parametrize("arch", TORCHRUN_ARCHS)
+def test_serve_driver_on_two_gloo_ranks_equals_one_process(torchrun_runs, arch):
+    """On two ranks the driver places the caches and the prompts over
+    `data` (`make_local_mesh()` over the group: (2, 1)); rank 0 prints the
+    one JSON object, whose greedy tokens (row 0's, all 8 decoded) equal
+    the one-process run's."""
+    got, want = torchrun_runs[0][arch], torchrun_runs[1][arch]
+    assert set(got) == set(want)
+    assert got["decoded"] == want["decoded"] == 8
+    assert got["sample_output"] == want["sample_output"]
+    assert got["arch"] == want["arch"] and got["batch"] == want["batch"] == 4

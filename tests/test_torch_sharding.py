@@ -63,6 +63,7 @@ from repro_torch.distributed import compression, sharding  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.transformer import LAYER_STACKS, params_from_jax  # noqa: E402
 from repro_torch.optim import AdamWConfig, lr_at  # noqa: E402
 
@@ -465,18 +466,19 @@ decoded = []
 for i in range(seq):
     out, caches = serve(module, caches, tokens[:, i:i + 1], i)
     decoded.append(out.full_tensor())
-uneven_error = None
+uneven = None
 if "uneven_batch" in case:  # each rank's tokens no whole number of groups
-    try:
-        step(state, case["uneven_batch"])
-    except ValueError as e:
-        uneven_error = str(e)
+    uneven_state = init_train_state(model, device="cpu")
+    uneven_state.params.load_state_dict(case["params"])
+    uneven_state, um = step(shard_train_state(uneven_state, state_sh), case["uneven_batch"])
+    uneven = dict(loss=float(um["loss"]), grad_norm=float(um["grad_norm"]), params={
+        n: p.full_tensor() for n, p in uneven_state.params.named_parameters()})
 if rank == 0:
     torch.save(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                     params=params, mu=moments, placements=before, mu_placements=mu,
                     mu_local=local, step=int(state.step), prefill=logits,
                     decode=torch.stack(decoded), cache_placements=cache_pl,
-                    uneven_error=uneven_error,
+                    uneven=uneven,
                     accum=dict(loss=float(am["loss"]), grad_norm=float(am["grad_norm"]),
                                params=accum_params)), out_path)
 print(json.dumps({"rank": rank, "ok": True}), flush=True)
@@ -599,6 +601,12 @@ def _one_device(tmp_path_factory, cfg, ref, weights, tensors, **extra):
     caches = model.init_caches(module, 4, 12)
     one["decode"] = torch.stack([serve(module, caches, decode_tokens[:, i:i + 1], i)[0]
                                  for i in range(12)])
+    if "uneven_batch" in extra:  # a step from the starting weights on the uneven batch
+        state = steps.init_train_state(model, device="cpu")
+        state.params.load_state_dict(weights)
+        state, um = step(state, extra["uneven_batch"])
+        one["uneven"] = dict(loss=float(um["loss"]), grad_norm=float(um["grad_norm"]), params={
+            n: p.detach().clone() for n, p in state.params.named_parameters()})
     case_path = tmp_path_factory.mktemp("gloo_case") / "case.pt"
     torch.save(dict(cfg=cfg, opt=_OPT, params=weights, batch=tensors,
                     accum_batch=accum_batch, decode_tokens=decode_tokens, **extra),
@@ -654,10 +662,11 @@ def test_two_gloo_ranks_equal_the_one_device_step(one_device, tmp_path, plan, da
     assert got["accum"]["loss"] == pytest.approx(one["accum"]["loss"], rel=1e-6)
     assert got["accum"]["grad_norm"] == pytest.approx(one["accum"]["grad_norm"], rel=1e-6)
     _close_params(got["accum"]["params"], one["accum"]["params"], one_device["lr"])
-    # the decode gathers the caches and weights and runs the whole batch:
-    # the one-device decode bit for bit; the prefill of a batch split
-    # over `data` runs two half-batch products, so within 1e-5
-    assert torch.equal(got["decode"], one["decode"])
+    # each rank decodes its batch rows on its shards of the weights (and,
+    # on (1, 2), its half of the cache sequence, the softmax combined over
+    # `model`), and the prefill of a batch split over `data` runs two
+    # half-batch products: both within 1e-5
+    torch.testing.assert_close(got["decode"], one["decode"], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
     if plan == "BASELINE_PLAN":
         # DECODE_PLAN on (1, 2): the cache sequence over `model`
@@ -681,9 +690,11 @@ def test_two_gloo_ranks_moe_equal_the_one_device_step(one_device_moe, tmp_path):
     """phi3.5-moe under DP_ALL_PLAN on (2, 1), the ignored labels split
     unevenly: each rank weights the cross-entropy by its share of the
     supervised tokens and the load-balance term by its share of the
-    dispatch groups, so the step is the one-device step within the
-    tolerances of the dense case; a batch whose rank shards are no whole
-    number of groups raises."""
+    batch, so the step is the one-device step within the tolerances of
+    the dense case; a batch whose rank shards are no whole number of
+    dispatch groups (96 tokens a rank, groups of 64) gathers the MoE
+    blocks' input over `data` and routes the global groups (C15), so it
+    too is the one-device step within those tolerances."""
     got = _gloo_step(tmp_path, one_device_moe["case"], "DP_ALL_PLAN", 2, 1)
     one, lr = one_device_moe["one"], one_device_moe["lr"]
     assert got["step"] == 1
@@ -694,10 +705,12 @@ def test_two_gloo_ranks_moe_equal_the_one_device_step(one_device_moe, tmp_path):
     assert got["accum"]["loss"] == pytest.approx(one["accum"]["loss"], rel=1e-6)
     assert got["accum"]["grad_norm"] == pytest.approx(one["accum"]["grad_norm"], rel=1e-6)
     _close_params(got["accum"]["params"], one["accum"]["params"], lr)
-    assert torch.equal(got["decode"], one["decode"])
+    torch.testing.assert_close(got["decode"], one["decode"], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
-    assert "whole number of dispatch groups of 64" in got["uneven_error"]
-    assert "(96)" in got["uneven_error"]
+    uneven, want = got["uneven"], one["uneven"]
+    assert uneven["loss"] == pytest.approx(want["loss"], rel=1e-6)
+    assert uneven["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-6)
+    _close_params(uneven["params"], want["params"], lr)
 
 
 # ---------------------------------------------------------------------------
@@ -935,3 +948,277 @@ def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
     assert got["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-5)
     _close_params(got["params"], one["params"], tp_runs["lr"])
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel decode on Gloo ranks against the reference's GSPMD step
+# ---------------------------------------------------------------------------
+
+#: the reference's serve step under DECODE_PLAN (the caches by its
+#: `cache_shardings_for`, the tokens over the batch axes) on CPU meshes of
+#: forced host devices, teacher-forced from the case's weights and tokens
+_REF_SERVE = r"""
+import pickle, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+import dataclasses
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.distributed import sharding
+from repro.launch.mesh import _axis_type_kwargs
+from repro.launch.steps import build_serve_step
+from repro.models import build_model
+
+cases_path, data, model_axis, out_path = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+with open(cases_path, "rb") as f:
+    cases = pickle.load(f)
+mesh = jax.make_mesh((data, model_axis), ("data", "model"),
+                     devices=jax.devices()[:data * model_axis], **_axis_type_kwargs(2))
+out = {}
+for name, case in cases.items():
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case["changes"])
+    model = build_model(cfg)
+    tokens = jnp.asarray(case["tokens"])
+    b, seq = tokens.shape
+    params = jax.tree.map(jnp.asarray, case["ref_params"])
+    with mesh:
+        serve, _ = build_serve_step(model, mesh, sharding.DECODE_PLAN, seq,
+                                    cache_specs=model.cache_specs(ShapeConfig("d", seq, b, "decode")),
+                                    token_batch=b)
+        frames = None if case["frames"] is None else jnp.asarray(case["frames"])
+        caches = model.init_caches(params, b, seq, frames=frames)
+        logits = []
+        for i in range(seq):
+            lg, caches = serve(params, caches, tokens[:, i:i + 1], jnp.int32(i))
+            logits.append(np.asarray(lg))
+    out[name] = dict(logits=np.stack(logits), caches={k: np.asarray(v) for k, v in caches.items()})
+with open(out_path, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+#: the port's serve step under DECODE_PLAN on Gloo ranks, every case in
+#: turn on one group; each step under `OpCounter`, `DTensor.full_tensor`
+#: and every `redistribute` that changes a placement recorded
+_SERVE_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+from repro_torch.analysis.roofline import OpCounter
+from repro_torch.configs import ShapeConfig
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import build_serve_step, cache_shardings_for, shard_params
+from repro_torch.models import build_model
+
+rank, init, cases_path, _, data, model_axis, out_path = (
+    int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
+    int(sys.argv[6]), sys.argv[7])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=data * model_axis)
+mesh = make_local_mesh(data, model_axis, device="cpu")
+plan = sharding.DECODE_PLAN
+moved = []
+full_tensor, redistribute = DTensor.full_tensor, DTensor.redistribute
+
+
+def recorded_full(self, *a, **k):
+    moved.append(("full_tensor", tuple(self.shape)))
+    return full_tensor(self, *a, **k)
+
+
+def recorded_redistribute(self, device_mesh=None, placements=None, *a, **k):
+    if placements is not None and tuple(placements) != tuple(self.placements):
+        moved.append(("redistribute", tuple(self.shape)))
+    return redistribute(self, device_mesh, placements, *a, **k)
+
+
+out = {}
+for name, case in torch.load(cases_path, weights_only=False).items():
+    cfg, tokens, frames = case["cfg"], case["tokens"], case["frames"]
+    model = build_model(cfg)
+    b, seq = tokens.shape
+    module = model.init(device="cpu")
+    module.load_state_dict(case["params"])
+    whole = model.init_caches(module, b, seq, device="cpu", frames=frames)
+    serve, param_sh = build_serve_step(model, mesh, plan, seq)
+    shard_params(module, param_sh)
+    at = mesh.mesh_dim_names.index("model")
+    split = sum(p.numel() * p.element_size() for n, p in module.named_parameters()
+                if sharding.compute_placements(param_sh[n], plan)[at].is_shard())
+    cache_sh = cache_shardings_for(mesh, plan, model.cache_specs(ShapeConfig("d", seq, b, "decode")),
+                                   seq_dim=3 if cfg.cache_layout == "bksd" else 2)
+    caches = {k: distribute_tensor(c, mesh, cache_sh[k].placements) for k, c in whole.items()}
+    logits, gathered = [], 0.0
+    for i in range(seq):
+        DTensor.full_tensor, DTensor.redistribute = recorded_full, recorded_redistribute
+        try:
+            with OpCounter() as counter:
+                lg, caches = serve(module, caches, tokens[:, i:i + 1], i)
+        finally:
+            DTensor.full_tensor, DTensor.redistribute = full_tensor, redistribute
+        gathered += counter.coll_by_kind["all-gather"]
+        logits.append(lg.full_tensor())
+    out[name] = dict(logits=torch.stack(logits),
+                     caches={k: c.full_tensor() for k, c in caches.items()},
+                     cache_placements={k: [repr(p) for p in c.placements] for k, c in caches.items()},
+                     logits_placements=[repr(p) for p in lg.placements],
+                     logits_local=list(lg.to_local().shape),
+                     all_gather_bytes=gathered, split_weight_bytes=split, moved=list(moved))
+    moved.clear()
+if rank == 0:
+    torch.save(out, out_path)
+dist.destroy_process_group()
+"""
+
+#: name -> (arch reduced, config changes, batch, steps): every step's
+#: logits and the final caches against the reference's on each of
+#: `SERVE_MESHES`.  The steps cross the cache's halves, so the write
+#: moves from rank 0's slice to rank 1's; hymba's 44 steps wrap its
+#: 32-position ring buffer; 25 positions do not divide `model`, so that
+#: cache stays whole (batch split only); whisper's 16 steps give 4
+#: encoder frames, its cross caches split too; the MoE's 8 rows form one
+#: global group of 8 where a rank of (2, 2) holds 4, and capacity drops.
+SERVE_CASES = {
+    "dense": ("paper-gpt-125m", {}, 4, 20),
+    "dense-bksd": ("paper-gpt-125m", {"cache_layout": "bksd"}, 4, 20),
+    "dense-probs-rounded": ("paper-gpt-125m", {"attn_cast_f32": False}, 4, 20),
+    "dense-bksd-probs-rounded": ("paper-gpt-125m",
+                                 {"cache_layout": "bksd", "attn_cast_f32": False}, 4, 20),
+    "hybrid": ("hymba-1.5b", {}, 4, 44),
+    "hybrid-window-25": ("hymba-1.5b", {"window": 25}, 4, 30),
+    "ssm": ("mamba2-130m", {}, 4, 12),
+    "moe": ("phi3.5-moe-42b-a6.6b", {"capacity_factor": 1.0}, 8, 12),
+    "encdec": ("whisper-base", {}, 4, 16),
+}
+SERVE_MESHES = [(1, 2), (2, 2)]
+
+
+def _serve_case(arch, changes, batch, steps_):
+    """The reference's seed-0 weights of `arch` reduced (with `changes`),
+    as its tree and as the port's, seeded tokens (and frames)."""
+    rcfg = dataclasses.replace(ref_config(arch).reduced(), **changes)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    tree = jax.tree.map(np.asarray, ref_build_model(rcfg).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, steps_)).astype(np.int32)
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.normal(0, 1, (batch, steps_ // cfg.enc_seq_divisor, cfg.d_model)
+                            ).astype(np.float32)
+    return dict(arch=arch, changes=changes, cfg=cfg, ref_params=tree,
+                params=params_from_jax(tree, cfg), tokens=tokens, frames=frames)
+
+
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """Every `SERVE_CASES` case on both meshes at once: the reference's
+    serve step on 2 and 4 forced CPU devices (one interpreter a mesh) and
+    the port's on 2 and 4 Gloo ranks (one process a rank, every case in
+    turn); while they run, the port's one-device decode of the MoE case,
+    of its whole batch and of each half."""
+    tmp = tmp_path_factory.mktemp("serve")
+    cases = {name: _serve_case(*spec) for name, spec in SERVE_CASES.items()}
+    with open(tmp / "ref.pkl", "wb") as f:
+        pickle.dump({n: {k: c[k] for k in ("arch", "changes", "ref_params", "tokens", "frames")}
+                     for n, c in cases.items()}, f)
+    torch.save({n: dict(cfg=c["cfg"], params=c["params"], tokens=torch.from_numpy(c["tokens"]),
+                        frames=None if c["frames"] is None else torch.from_numpy(c["frames"]))
+                for n, c in cases.items()}, tmp / "port.pt")
+    procs, outs = [], {}
+    for data, model_axis in SERVE_MESHES:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _REF_SERVE, str(tmp / "ref.pkl"), str(data), str(model_axis),
+             str(tmp / f"ref_{data}x{model_axis}.pkl")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env(JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=4")))
+        ranks, outs[data, model_axis] = _gloo_ranks(
+            _SERVE_RANK, tmp, f"serve_{data}x{model_axis}", tmp / "port.pt", "DECODE_PLAN",
+            data, model_axis)
+        procs += ranks
+    try:
+        moe = cases["moe"]
+        model = build_model(moe["cfg"])
+        module = model.init(device="cpu")
+        module.load_state_dict(moe["params"])
+        tokens = torch.from_numpy(moe["tokens"])
+        grouped, drops = {}, []
+        for label, rows in (("global", slice(None)), ("first", slice(0, 4)),
+                            ("second", slice(4, 8))):
+            t = tokens[rows]
+            caches = model.init_caches(module, t.shape[0], t.shape[1], device="cpu")
+            hooks = [layer.moe.register_forward_pre_hook(
+                lambda m, args: drops.append(int(moe_lib.dropped(m, args[0], m.cfg))))
+                for layer in module.layers] if label == "global" else []
+            grouped[label] = torch.stack([model.decode_step(
+                module, caches, t[:, i:i + 1], i, t.shape[1])[0] for i in range(t.shape[1])])
+            for hook in hooks:
+                hook.remove()
+    finally:
+        _wait(procs, 300)
+    ref = {}
+    for data, model_axis in SERVE_MESHES:
+        with open(tmp / f"ref_{data}x{model_axis}.pkl", "rb") as f:
+            ref[data, model_axis] = pickle.load(f)
+    return dict(port={k: torch.load(v, weights_only=False) for k, v in outs.items()}, ref=ref,
+                cases=cases, grouped=grouped, drops=drops)
+
+
+def _expected_cache_placements(cfg, key, shape, data, model_axis):
+    """The placements `DECODE_PLAN` gives cache `key` on a (data,
+    model_axis) mesh: the batch over `data`; an attention cache's
+    sequence over `model` where it divides."""
+    batch = "Shard(dim=1)" if data > 1 else "Replicate()"
+    if key not in ("k", "v", "cross_k", "cross_v"):
+        return [batch, "Replicate()"]
+    seq = 3 if cfg.cache_layout == "bksd" and cfg.family != "encdec" else 2
+    return [batch, f"Shard(dim={seq})" if shape[seq] % model_axis == 0 else "Replicate()"]
+
+
+@pytest.mark.parametrize("data,model_axis", SERVE_MESHES)
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_sequence_parallel_serve_step_equals_the_reference(serve_runs, case, data, model_axis):
+    """DECODE_PLAN on (1, 2) and (2, 2): each rank decodes its batch rows
+    against its own slices of the caches on its shards of the weights,
+    the softmax combined over `model`; every step's logits and every
+    final cache against the reference's GSPMD serve step on as many CPU
+    devices within 1e-5 (f32), the caches placed as the plan says and the
+    logits split over the vocab on `model`."""
+    got, want = serve_runs["port"][data, model_axis][case], serve_runs["ref"][data, model_axis][case]
+    cfg = serve_runs["cases"][case]["cfg"]
+    torch.testing.assert_close(got["logits"], torch.from_numpy(want["logits"]),
+                               rtol=1e-5, atol=1e-5)
+    assert sorted(got["caches"]) == sorted(want["caches"])
+    for key, cache in got["caches"].items():
+        torch.testing.assert_close(cache, torch.from_numpy(want["caches"][key]),
+                                   rtol=1e-5, atol=1e-5, msg=key)
+        assert got["cache_placements"][key] == _expected_cache_placements(
+            cfg, key, tuple(cache.shape), data, model_axis), key
+    b = serve_runs["cases"][case]["tokens"].shape[0]
+    assert got["logits_placements"] == ["Shard(dim=0)" if data > 1 else "Replicate()",
+                                        "Shard(dim=2)"]
+    assert got["logits_local"] == [b // data, 1, cfg.padded_vocab // model_axis]
+
+
+@pytest.mark.parametrize("data,model_axis", SERVE_MESHES)
+def test_serve_step_gathers_no_cache_and_no_split_weight(serve_runs, data, model_axis):
+    """No step calls `full_tensor()` or moves a placement (no cache and no
+    weight is gathered), and every case's all-gathers (the tokens'
+    q, k and v, the MoE block's input, the SSM's projections) move less
+    than a tenth of the bytes of the weights split over `model`."""
+    for case, got in serve_runs["port"][data, model_axis].items():
+        assert got["moved"] == [], case
+        steps_ = serve_runs["cases"][case]["tokens"].shape[1]
+        assert 0 < got["all_gather_bytes"] / steps_ < got["split_weight_bytes"] / 10, case
+
+
+def test_moe_decode_cases_tell_the_groupings_apart(serve_runs):
+    """The MoE case is sensitive to the grouping: its decode with each
+    rank's half of the batch grouped alone differs from the global
+    groups' (which the sharded step matches), and the global groups
+    drop assignments at capacity."""
+    grouped = serve_runs["grouped"]
+    local = torch.cat([grouped["first"], grouped["second"]], dim=1)
+    assert (local - grouped["global"]).abs().max() > 1e-3
+    assert sum(serve_runs["drops"]) > 0, serve_runs["drops"]
