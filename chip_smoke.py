@@ -165,14 +165,27 @@ package — in these phases, and exits non-zero if any fails:
            to 20,000 so the last chunks are masked) equals
            `decode_attention` on the card in both cache layouts and both
            `cast_f32` values (f32 within 1e-6; bf16 within one bf16
-           rounding, atol 1e-2 and rtol 2**-7).  The train and serve
+           rounding, atol 1e-2 and rtol 2**-7); the train and prefill
+           steps' splits over 16 ranks of `model`, each in its plain
+           in-process version: mamba2-130m's SSD at full width (2 x
+           4,096) in 16 slices of d_inner, the norm's sums of squares
+           summed (`ssm.split_ssm`), against `apply_ssm` within 1e-5,
+           and the query split (`attention.query_split_attention`, 16
+           ranks' zigzag blocks, k and v whole) of causal attention with
+           whisper-base's heads (8 of 64) and llama4-scout's (40 of 128,
+           8 KV) over 32,768 positions, with and without `triangular`,
+           and of whisper's cross-attention (32,768 queries over 8,192
+           frames), against the whole attention within 1e-6 (each case's
+           error, bit-identity and seconds printed).  The train and serve
            phases above build their steps through the same mesh and
            plans;
   dryrun   `python -m repro_torch.launch.dryrun` on a fake 256/512-rank
            group, in subprocesses, all at once: qwen1.5-0.5b train_4k (one
            microbatch), mamba2-130m decode_32k on both meshes, phi3.5-moe
-           and whisper-base decode_32k, and the skipped paper-gpt-125m
-           long_500k, each with `--device cuda` and `--device cpu` into
+           and whisper-base decode_32k, the skipped paper-gpt-125m
+           long_500k, mamba2-130m prefill_32k on (16, 16) and
+           whisper-base prefill_32k on (2, 16, 16) (the split scan and
+           the query split), each with `--device cuda` and `--device cpu` into
            build/dryrun/: every row `ok` or `skipped`, every card row
            equal to its CPU row outside `compile_s`, `delta_s` and
            `wall_s`; one `run_cell` in this process leaves
@@ -182,7 +195,8 @@ package — in these phases, and exits non-zero if any fails:
            tensor parallelism under BASELINE_PLAN) on a line of their
            own, and the decode rows' FLOPs, temp and all-gather bytes on
            another (each rank decodes its rows against its slices of the
-           caches under DECODE_PLAN); then the dry run of the train phase's own step
+           caches under DECODE_PLAN), and the prefill rows' on a
+           `dryrun-split-scan` line; then the dry run of the train phase's own step
            (paper-gpt-125m, one device, 8 x 512, bf16) beside that
            phase's measured peak: its `args_bytes` must not exceed it.
 
@@ -1979,6 +1993,7 @@ def mesh_phase(torch, np) -> dict:
             raise AssertionError(f"mesh serve step: cache {k} differs")
 
     split_errors = split_softmax_case(torch)
+    tp_splits = tensor_parallel_split_cases(torch)
 
     rng = np.random.default_rng(7)
     leaves = {name: rng.standard_normal(tuple(p.shape)).astype(np.float32)
@@ -1999,6 +2014,7 @@ def mesh_phase(torch, np) -> dict:
     return dict(mesh=str(mesh), mesh_shape=list(mesh.shape), layers=MESH_LAYERS,
                 train_steps=MESH_TRAIN_STEPS, losses=mesh_losses,
                 decode_steps=seq_len, split_softmax_max_abs_err=split_errors,
+                tensor_parallel_splits=tp_splits,
                 compress_leaves=len(leaves),
                 compress_elements=sum(v.size for v in leaves.values()),
                 moments_placements=sorted({str(sh.placements)
@@ -2045,6 +2061,88 @@ def split_softmax_case(torch) -> dict:
     return errors
 
 
+#: the mesh phase's tensor-parallel splits, in one process as 16 ranks of
+#: `model` would compute them: mamba2-130m's SSD at full width (batch,
+#: positions) in 16 slices of d_inner; the query split of causal
+#: attention with whisper-base's heads (8 of 64, 8 KV) and llama4-scout's
+#: (40 of 128, 8 KV), one row, and of whisper's bidirectional
+#: cross-attention (32,768 queries over 8,192 frames); tolerances
+#: (atol, rtol)
+TP_PARTS = 16
+SPLIT_SCAN_CASE = (2, 4096)
+SPLIT_SCAN_TOL = (1e-5, 1e-5)
+QUERY_SPLIT_CASES = {  # name: (heads, kv heads, head dim, query rows, key rows)
+    "whisper-base causal": (8, 8, 64, 32768, None),
+    "llama4-scout causal": (40, 8, 128, 32768, None),
+    "whisper-base cross": (8, 8, 64, 32768, 8192),
+}
+QUERY_SPLIT_TOL = (1e-6, 1e-6)
+
+
+def tensor_parallel_split_cases(torch) -> dict:
+    """The train and prefill steps' splits over 16 ranks of `model`, each
+    in its plain in-process version on the card against the whole form,
+    f32: `ssm.split_ssm` (the scan on each rank's 96 channels, the gated
+    norm's sums of squares summed) against `apply_ssm`, within
+    `SPLIT_SCAN_TOL`; `attention.query_split_attention` (16 ranks' query
+    blocks, k and v whole) against `chunked_causal_attention` at
+    ``q_chunk`` 1,024 (each rank two blocks in zigzag), with and without
+    ``triangular``, and against `full_cross_attention`, within
+    `QUERY_SPLIT_TOL`; each case's max abs error, whether it is bit for
+    bit, and its seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, ssm
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cfg = dataclasses.replace(get_config("mamba2-130m"), param_dtype="float32",
+                              compute_dtype="float32")
+    mixer = ssm.SSM(cfg, torch.float32, "cuda", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        h = cfg.ssm_n_heads
+        mixer.A_log.copy_(torch.randn(h, generator=g, device="cuda") * 0.5)
+        mixer.D.copy_(1 + 0.3 * torch.randn(h, generator=g, device="cuda"))
+        mixer.dt_bias.copy_(torch.randn(h, generator=g, device="cuda") * 0.5)
+        b, seq = SPLIT_SCAN_CASE
+        x = torch.randn((b, seq, cfg.d_model), generator=g, device="cuda")
+        t0 = time.perf_counter()
+        whole = ssm.apply_ssm(mixer, x, cfg)
+        got = ssm.split_ssm(mixer, x, cfg, TP_PARTS)
+        torch.cuda.synchronize()
+        atol, rtol = SPLIT_SCAN_TOL
+        torch.testing.assert_close(got, whole, atol=atol, rtol=rtol)
+        out[f"mamba2-130m ssd {b} x {seq}"] = dict(
+            max_abs_err=float((got - whole).abs().max()), bitwise=torch.equal(got, whole),
+            seconds=time.perf_counter() - t0)
+        for name, (heads, kv, d, rows, keys) in QUERY_SPLIT_CASES.items():
+            q = torch.randn((1, rows, heads, d), generator=g, device="cuda")
+            k, v = (torch.randn((1, keys or rows, kv, d), generator=g, device="cuda")
+                    for _ in range(2))
+            for triangular in ((False,) if keys else (False, True)):
+                if keys:
+                    core, q_chunk = attention.full_cross_attention, None
+                else:
+                    def core(q_, k_, v_, q_blocks=None, q_chunk=1024, tri=triangular):
+                        return attention.chunked_causal_attention(
+                            q_, k_, v_, q_chunk=q_chunk, kv_chunk=1024, triangular=tri,
+                            remat_qblock=False, q_blocks=q_blocks)
+                    q_chunk = 1024
+                t0 = time.perf_counter()
+                whole = core(q, k, v)
+                got = attention.query_split_attention(core, q, k, v, TP_PARTS, q_chunk)
+                torch.cuda.synchronize()
+                atol, rtol = QUERY_SPLIT_TOL
+                torch.testing.assert_close(got, whole, atol=atol, rtol=rtol)
+                label = name + (" triangular" if triangular else "")
+                out[label] = dict(max_abs_err=float((got - whole).abs().max()),
+                                  bitwise=torch.equal(got, whole),
+                                  seconds=time.perf_counter() - t0)
+                del whole, got
+    return out
+
+
 #: the dryrun phase: (arch, shape, mesh, flags), one CLI call each on the
 #: card and on the CPU (the tests' cells, whisper-base and a skipped cell)
 DRYRUN_CELLS = [
@@ -2053,9 +2151,24 @@ DRYRUN_CELLS = [
     ("phi3.5-moe-42b-a6.6b", "decode_32k", "single", []),
     ("whisper-base", "decode_32k", "single", []),
     ("paper-gpt-125m", "long_500k", "single", []),
+    ("mamba2-130m", "prefill_32k", "single", []),
+    ("whisper-base", "prefill_32k", "multi", []),
 ]
 #: a row's wall-clock fields, the only ones a card row may differ in
 DRYRUN_CLOCKS = ("compile_s", "delta_s", "wall_s")
+
+
+def failed_rows(out_dir: str) -> dict:
+    """The error and trace of every row under `out_dir` that is not `ok`
+    or `skipped`."""
+    bad = {}
+    for folder, _, names in os.walk(out_dir):
+        for name in names:
+            with open(os.path.join(folder, name)) as f:
+                row = json.load(f)
+            if row.get("status") not in ("ok", "skipped"):
+                bad[os.path.join(os.path.basename(folder), name)] = row.get("trace", row)
+    return bad
 
 
 def dryrun_phase(torch, train_peak: int) -> dict:
@@ -2088,10 +2201,10 @@ def dryrun_phase(torch, train_peak: int) -> dict:
         for device in ("cuda", "cpu") for arch, shape, mesh, flags in DRYRUN_CELLS]
     try:
         for p in procs:
-            _, err = p.communicate(timeout=600)
-            if p.returncode != 0:
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:  # a failed cell's error is in its row
                 raise AssertionError(f"dry run {p.args[3:11]} exited {p.returncode}: "
-                                     f"{err[-2000:]}")
+                                     f"{out[-1000:]} {err[-2000:]} {failed_rows(out_dir)}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2106,7 +2219,7 @@ def dryrun_phase(torch, train_peak: int) -> dict:
             with open(os.path.join(folder, name)) as f:
                 rows[device][name] = {k: v for k, v in json.load(f).items()
                                       if k not in DRYRUN_CLOCKS}
-    if sorted(rows["cuda"]) != sorted(rows["cpu"]) or len(rows["cuda"]) != 6:
+    if sorted(rows["cuda"]) != sorted(rows["cpu"]) or len(rows["cuda"]) != 8:
         raise AssertionError(f"dry run rows: {sorted(rows['cuda'])} vs {sorted(rows['cpu'])}")
     for name, row in rows["cuda"].items():
         if row["status"] not in ("ok", "skipped"):
@@ -2152,6 +2265,13 @@ def dryrun_phase(torch, train_peak: int) -> dict:
                "all_gather_bytes": row["costs"]["coll_by_kind"]["all-gather"]}
         for name, row in rows["cuda"].items()
         if "decode_32k" in name and row["status"] == "ok"}), flush=True)
+    # the prefill rows: mamba2's scan on each rank's slice of d_inner,
+    # whisper's attention split over query blocks (one row a rank)
+    print("dryrun-split-scan " + json.dumps({
+        name: {"flops_per_device": row["costs"]["flops"],
+               "temp_bytes": row["memory"]["temp_bytes"],
+               "all_gather_bytes": row["costs"]["coll_by_kind"]["all-gather"]}
+        for name, row in rows["cuda"].items() if "prefill_32k" in name}), flush=True)
     summary = {name: {k: row.get(k) for k in ("status", "n_chips", "plan", "accum")}
                | ({"flops": row["costs"]["flops"],
                    "coll_bytes": row["costs"]["coll_bytes"],

@@ -509,7 +509,9 @@ def build_prefill_step(model: Model, mesh: DeviceMesh, plan: ShardingPlan, *,
     leaves, _ = _batch_layout(mesh, plan, 0)
     vocab = compute_placements(param_sh["embed"], plan)
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: a DTensor's redistribute there calls
+    # `aten.detach_`, which some torch releases give no sharding strategy
+    @torch.no_grad()
     def sharded_prefill(module: nn.Module, batch: dict):
         local, _, tp = local_model(module, False)
         logits = model.forward(local, _local_batch(batch, mesh, leaves),

@@ -13,6 +13,15 @@ With ``triangular=True`` the walk takes only the KV chunks a Q chunk can
 see.  `scaled_dot_product_attention` does not stand in for this: the
 port follows the reference's arithmetic, chunk by chunk.
 
+Prefill split over query blocks (a rank of the model axis that holds
+whole heads and too few (batch, kv head) groups to share them): each
+rank takes its rows of the queries against whole keys and values
+(`query_split`; `query_split_attention` takes every rank's in one
+process).  A causal rank takes ``q_chunk``-row blocks in zigzag
+(`zigzag_blocks`) and hands their global indices to
+`chunked_causal_attention` (``q_blocks``), so each block's mask and
+triangular walk are the whole walk's.
+
 Decode attends one token against a KV cache in either layout: ``bskd``
 ([B, S_cache, KV, D]) or head-major ``bksd`` ([B, KV, S_cache, D]), whose
 (B, KV) leading dims are the einsum's batch dims.  The cache writes go in
@@ -31,6 +40,8 @@ These two passes round where the one-chunk form rounds; a one-pass
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -41,8 +52,12 @@ __all__ = [
     "decode_attention",
     "decode_attention_bksd",
     "full_cross_attention",
+    "kv_chunks",
+    "query_split",
+    "query_split_attention",
     "update_kv_cache",
     "update_kv_cache_bksd",
+    "zigzag_blocks",
 ]
 
 NEG = -1e30
@@ -101,22 +116,30 @@ def chunked_causal_attention(
     triangular: bool = False,
     cast_f32: bool = True,
     remat_qblock: bool = True,
+    q_blocks: Sequence[int] | None = None,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention, O(q_chunk*kv_chunk) memory.
 
-    q: [B, S, H, D]; k, v: [B, S, KV, D].  S must divide by the chunk sizes
+    q: [B, Sq, H, D]; k, v: [B, S, KV, D].  S must divide by the chunk sizes
     (configs guarantee this; tests use small aligned chunks).
     ``remat_qblock`` recomputes each Q block's online softmax in the
     backward pass (`torch.utils.checkpoint`) instead of keeping its
-    per-chunk probabilities.
+    per-chunk probabilities.  ``q_blocks``: the global indices of the
+    ``q_chunk``-row blocks of the sequence that q holds, in order (None:
+    all of them, Sq = S); each block's mask and triangular walk follow
+    its global positions, so it is computed as the whole walk computes it.
     """
-    b, s, h, d = q.shape
+    b, sq, h, d = q.shape
+    s = k.shape[1]
     n_kv = k.shape[2]
     g = h // n_kv
     scale = 1.0 / (d**0.5)
     q_chunk = min(q_chunk, s)
     kv_chunk = min(kv_chunk, s)
-    nq, nkv = s // q_chunk, s // kv_chunk
+    if q_blocks is None:
+        q_blocks = range(s // q_chunk)
+    nq, nkv = len(q_blocks), s // kv_chunk
+    assert nq * q_chunk == sq, (sq, q_chunk, list(q_blocks))
     qs = _group_q(q, n_kv).reshape(b, nq, q_chunk, n_kv, g, d)
     ks = k.reshape(b, nkv, kv_chunk, n_kv, d)
     vs = v.reshape(b, nkv, kv_chunk, n_kv, d)
@@ -134,33 +157,85 @@ def chunked_causal_attention(
 
     def q_block(iq, qb):
         # qb: [B, q_chunk, KV, G, D]
-        if triangular:
-            # only chunks overlapping [lo, hi] are touched
-            hi = (iq + 1) * q_chunk  # exclusive
-            lo = 0 if window is None else max(0, iq * q_chunk - window + 1)
-            chunks = range(lo // kv_chunk, (hi + kv_chunk - 1) // kv_chunk)
-        else:
-            chunks = range(nkv)
         state = (
             torch.full((b, n_kv, g, q_chunk), NEG, dtype=torch.float32, device=q.device),
             torch.zeros((b, n_kv, g, q_chunk), dtype=torch.float32, device=q.device),
             torch.zeros((b, n_kv, g, q_chunk, d), dtype=torch.float32, device=q.device),
         )
-        for jk in chunks:
+        for jk in kv_chunks(iq, q_chunk, kv_chunk, nkv, window, triangular):
             state = _chunk_attn_block(
                 qb, ks[:, jk], vs[:, jk], mask_for(iq, jk), state, scale, cast_f32
             )
         return _finish(*state, b, q_chunk, h, d, q.dtype)
 
     outs = []
-    for iq in range(nq):
+    for i, iq in enumerate(q_blocks):
         if remat_qblock:
             outs.append(checkpoint(
-                q_block, iq, qs[:, iq], use_reentrant=False, preserve_rng_state=False
+                q_block, iq, qs[:, i], use_reentrant=False, preserve_rng_state=False
             ))
         else:
-            outs.append(q_block(iq, qs[:, iq]))
+            outs.append(q_block(iq, qs[:, i]))
     return torch.cat(outs, dim=1)
+
+
+def kv_chunks(iq: int, q_chunk: int, kv_chunk: int, nkv: int, window: int | None,
+              triangular: bool) -> range:
+    """The KV chunks query block `iq` walks: all of them, or with
+    `triangular` only those overlapping the positions it can see."""
+    if not triangular:
+        return range(nkv)
+    hi = (iq + 1) * q_chunk  # exclusive
+    lo = 0 if window is None else max(0, iq * q_chunk - window + 1)
+    return range(lo // kv_chunk, (hi + kv_chunk - 1) // kv_chunk)
+
+
+def zigzag_blocks(n_blocks: int, parts: int) -> list[list[int]]:
+    """Each of `parts` ranks' query blocks of `n_blocks` (a multiple of
+    `parts`), taken in rounds of `parts` blocks: rank r takes block r of
+    the even rounds and block ``parts - 1 - r`` of the odd ones (r and
+    ``2 parts - 1 - r``, then ``2 parts + r``, ...), so over each pair of
+    rounds every rank's blocks walk as many KV chunks under `triangular`."""
+    return [[k * parts + (r if k % 2 == 0 else parts - 1 - r)
+             for k in range(n_blocks // parts)] for r in range(parts)]
+
+
+def query_split(s: int, parts: int, q_chunk: int | None):
+    """How `parts` ranks split `s` query rows: (block rows, each rank's
+    global block indices), or None where `parts` does not divide them.
+    A bidirectional core (`q_chunk` None) takes one contiguous block a
+    rank.  A causal one takes `zigzag_blocks` of ``q_chunk`` rows, or of
+    ``s / parts`` where that is fewer, halved where a rank would take an
+    odd number of them (so the zigzag pairs every block)."""
+    if s % parts:
+        return None
+    if q_chunk is None:
+        return s // parts, [[r] for r in range(parts)]
+    size = min(q_chunk, s // parts)
+    if (s // parts) % size:
+        return None
+    if (s // parts // size) % 2 and size % 2 == 0:
+        size //= 2
+    return size, zigzag_blocks(s // size, parts)
+
+
+def query_split_attention(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          parts: int, q_chunk: int | None = None) -> torch.Tensor:
+    """The query split's plain version, in one process: `core` on each of
+    `parts` ranks' query rows (`query_split`; a causal core given
+    ``q_blocks`` and ``q_chunk``), k and v whole, the outputs put back in
+    sequence order."""
+    b, s, h, d = q.shape
+    size, order = query_split(s, parts, q_chunk)
+    qb = q.reshape(b, s // size, size, h, d)
+    out = [None] * (s // size)
+    for blocks in order:
+        rows = qb[:, blocks].reshape(b, -1, h, d)
+        o = (core(rows, k, v) if q_chunk is None
+             else core(rows, k, v, q_blocks=blocks, q_chunk=size))
+        for i, block in zip(blocks, o.reshape(b, len(blocks), size, h, d).unbind(1)):
+            out[i] = block
+    return torch.stack(out, dim=1).reshape(b, s, h, d)
 
 
 def full_cross_attention(

@@ -165,15 +165,15 @@ class DecoderLayer(EncoderLayer):
         cfg = self.cfg
         b, s, _ = x.shape
 
-        def causal(q, k, v):
+        def causal(q, k, v, q_blocks=None, q_chunk=cfg.attn_q_chunk):
             return chunked_causal_attention(
-                q, k, v, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-                triangular=triangular,
+                q, k, v, q_chunk=q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                triangular=triangular, q_blocks=q_blocks,
             )
 
         if tp is not None and tp.size > 1:
             h = self.attn_norm(x)
-            x = x + tp_attention(tp, cfg, self.attn, h, h, causal)
+            x = x + tp_attention(tp, cfg, self.attn, h, h, causal, q_chunk=cfg.attn_q_chunk)
             x = x + tp_attention(tp, cfg, self.cross, self.cross_norm(x), enc_out,
                                  full_cross_attention)
             return self._mlp(x, tp)

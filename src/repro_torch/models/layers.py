@@ -29,6 +29,7 @@ __all__ = [
     "norm_axes",
     "rope_frequencies",
     "vocab_parallel",
+    "whole_columns",
 ]
 
 # ---------------------------------------------------------------------------
@@ -167,26 +168,39 @@ def apply_mlp(p, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     return tp.reduce(F.gelu(x @ p.wi + p.bi, approximate="tanh") @ p.wo) + p.bo
 
 
+def whole_columns(tp, w: torch.Tensor, b: torch.Tensor | None, part: slice):
+    """Columns `part` of a weight (and its bias) every rank holds whole,
+    through `copy`: the ranks' gradients of their slices are all-reduced."""
+    return tp.copy(w)[:, part], None if b is None else tp.copy(b)[part]
+
+
 def gathered_columns(tp, x: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor | None = None) -> torch.Tensor:
+                     b: torch.Tensor | None = None, xc: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """``x @ w (+ b)`` whole on every rank of the model axis (`tp`), each
-    rank computing its part of the columns (decode; no gradient is taken
-    through it): on its shard of a split `w`; of a whole `w`, on its even
-    share of the largest prefix of the columns the axis divides, the rest
-    computed whole on every rank."""
-    def product(w_, b_):
-        y = x @ w_
+    rank computing its part of the columns: on its shard of a split `w`;
+    of a whole `w`, on its even share of the largest prefix of the
+    columns the axis divides, the rest computed whole on every rank.
+    The shares are column products on ``xc = tp.copy(x)`` (passed where
+    the caller has it) and, of a whole `w` and `b`, on their copies, so
+    the ranks' gradients of their columns are all-reduced; the rest's
+    gradient is the same on every rank."""
+    def product(x_, w_, b_):
+        y = x_ @ w_
         return y if b_ is None else y + b_
 
     if tp.size == 1:
-        return product(w, b)
+        return product(x, w, b)
+    xc = tp.copy(x) if xc is None else xc
     if tp.dim(w) is not None:
-        return tp.gather(product(w, b), -1)
+        return tp.gather(product(xc, w, b), -1)
     n = w.shape[-1] // tp.size
     part, rest = slice(tp.start(n), tp.start(n) + n), slice(n * tp.size, None)
-    parts = [tp.gather(product(w[:, part], None if b is None else b[part]), -1)] if n else []
+    parts = []
+    if n:
+        parts.append(tp.gather(product(xc, *whole_columns(tp, w, b, part)), -1))
     if n * tp.size < w.shape[-1]:
-        parts.append(product(w[:, rest], None if b is None else b[rest]))
+        parts.append(product(x, w[:, rest], None if b is None else b[rest]))
     return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 

@@ -23,7 +23,15 @@ from torch import nn
 
 from .layers import dense_init, gathered_columns
 
-__all__ = ["SSM", "apply_ssm", "decode_ssm", "init_ssm_cache", "ssm_axes"]
+__all__ = [
+    "SSM",
+    "apply_ssm",
+    "channel_heads",
+    "decode_ssm",
+    "init_ssm_cache",
+    "split_ssm",
+    "ssm_axes",
+]
 
 
 def _dims(cfg):
@@ -99,39 +107,15 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
-    """Full-sequence SSD. x: [B, S, D] -> [B, S, D].
-
-    With `tp`, each weight the model axis splits is computed on this
-    rank's shard: ``in_proj`` a column product whose output is gathered
-    whole before the z/x/B/C/dt split (whose boundaries need not fall on
-    the shard's), the depthwise conv on this rank's channels, gathered,
-    and ``out_proj`` a row product on this rank's slice of the gated
-    norm, all-reduced.  The scan runs whole on every rank.
-    """
-    b, s, d = x.shape
-    d_inner, h, hp, n, conv_dim = _dims(cfg)
-    q = min(cfg.ssm_chunk, s)
-    assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
+def _ssd(xh, dt, a, d_skip, b_, c_, q):
+    """The chunked SSD over the heads given: xh [B, S, H, P] (the conv's
+    x), dt [B, S, H] (after the softplus), a and d_skip [H], b_ and c_
+    [B, S, N] -> y [B, S, H, P] f32, the D term added.  Each head's
+    channels depend on that head's dt, a and D and on the shared B and C
+    only, so a slice of the heads gives that slice of y."""
+    b, s, h, hp = xh.shape
+    n = b_.shape[-1]
     nc = s // q
-    split = lambda w: tp is not None and tp.dim(w) is not None
-
-    if split(p.in_proj):
-        zxbcdt = tp.gather(tp.copy(x) @ p.in_proj, -1)
-    else:
-        zxbcdt = x @ p.in_proj
-    z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xc, b_, c_], dim=-1)
-    if split(p.conv_w):
-        conv_out = tp.gather(F.silu(_causal_conv(
-            tp.split(conv_in, -1), p.conv_w, p.conv_b).float()), -1)
-    else:
-        conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b).float())
-    xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
-
-    a = -torch.exp(p.A_log)                                         # [H]
-    dt = _softplus(dt.float() + p.dt_bias)                          # [B,S,H]
-    xh = xc.reshape(b, s, h, hp)                                    # [B,S,H,P]
     # chunked views
     dtc = dt.reshape(b, nc, q, h)
     xcq = (xh * dt[..., None]).reshape(b, nc, q, h, hp)             # dt-weighted input
@@ -144,7 +128,7 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     # ---- intra-chunk (quadratic within chunk) -----------------------------
     # L[i,j] = exp(da_cum[i] - da_cum[j]) for j <= i else 0
     seg = da_cum[:, :, :, None, :] - da_cum[:, :, None, :, :]       # [B,NC,Q,Q,H]
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
     l_mat = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
     scores = torch.einsum("bcin,bcjn->bcij", cq, bq)                # [B,NC,Q,Q]
     y_intra = torch.einsum(
@@ -155,7 +139,7 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     decay_to_end = torch.exp(da_total[:, :, None, :] - da_cum)      # [B,NC,Q,H]
     states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bq, decay_to_end, xcq)
 
-    h_cur = torch.zeros((b, h, hp, n), dtype=torch.float32, device=x.device)
+    h_cur = torch.zeros((b, h, hp, n), dtype=torch.float32, device=xh.device)
     h_in = []
     for ci in range(nc):
         h_in.append(h_cur)
@@ -165,10 +149,120 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     y_inter = torch.einsum("bcin,bcih,bchpn->bcihp", cq, decay_from_start, h_in)
 
     y = (y_intra + y_inter).reshape(b, s, h, hp)
-    y = y + p.D[None, None, :, None] * xh.float()
-    y = _gated_norm(p, y.reshape(b, s, d_inner), z, tp)
-    if split(p.out_proj):
+    return y + d_skip[None, None, :, None] * xh.float()
+
+
+def channel_heads(lo: int, hi: int, head_dim: int) -> tuple[int, int]:
+    """The heads [h0, h1) that channels [lo, hi) of d_inner touch."""
+    return lo // head_dim, -(-hi // head_dim)
+
+
+def _ssd_channels(p, xc, b_, c_, dt, z, lo: int, hi: int, cfg, take=lambda w: w):
+    """Channels [lo, hi) of the SSD, gated: the scan on the heads they
+    touch, at whole head dim, then those channels times silu(z), f32
+    [B, S, hi - lo], before the norm.  `take` routes a whole parameter
+    (`A_log`, `D`, `dt_bias`) before its heads are read (`tp.copy` on a
+    rank of the model axis)."""
+    b, s, _ = xc.shape
+    hp = cfg.ssm_head_dim
+    h0, h1 = channel_heads(lo, hi, hp)
+    a = -torch.exp(take(p.A_log)[h0:h1])
+    dt = _softplus(dt[..., h0:h1].float() + take(p.dt_bias)[h0:h1])
+    xh = xc[..., h0 * hp:h1 * hp].reshape(b, s, h1 - h0, hp)
+    y = _ssd(xh, dt, a, take(p.D)[h0:h1], b_, c_, min(cfg.ssm_chunk, s))
+    y = y.reshape(b, s, -1)[..., lo - h0 * hp:hi - h0 * hp]
+    return y * F.silu(z[..., lo:hi].float())
+
+
+def _norm_channels(yf, sumsq, d_inner: int, scale):
+    """A slice of the gated RMS norm: `yf` [B, S, C] scaled by the sum of
+    squares over the whole d_inner (`sumsq` [B, S, 1]), times its slice
+    of the norm's `scale`."""
+    return yf * torch.rsqrt(sumsq / d_inner + 1e-6) * scale.float()
+
+
+def _projections(p, x, cfg, tp):
+    """(z, the conv's output [x, B, C] after the silu, f32, dt) of x:
+    ``in_proj`` and the causal conv, whole (on every rank of `tp`:
+    ``in_proj`` as `layers.gathered_columns`, the conv on this rank's
+    channels where its weights are split, gathered)."""
+    zxbcdt = x @ p.in_proj if tp is None else gathered_columns(tp, x, p.in_proj)
+    z, xc, b_, c_, dt = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xc, b_, c_], dim=-1)
+    if tp is not None and tp.dim(p.conv_w) is not None:
+        conv_out = tp.gather(F.silu(_causal_conv(
+            tp.split(conv_in, -1), p.conv_w, p.conv_b).float()), -1)
+    else:
+        conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b).float())
+    return z, conv_out, dt
+
+
+def _splits_scan(p: SSM, cfg, tp) -> bool:
+    """Whether `apply_ssm` splits the scan over `tp`'s model axis: more
+    than one rank, ``out_proj`` split over it, d_inner divided by it."""
+    return (tp is not None and tp.size > 1 and tp.dim(p.out_proj) is not None
+            and cfg.ssm_d_inner % tp.size == 0)
+
+
+def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """Full-sequence SSD. x: [B, S, D] -> [B, S, D].
+
+    With `tp`, ``in_proj`` is a column product gathered whole before the
+    z/x/B/C/dt split (whose boundaries need not fall on the shard's;
+    `layers.gathered_columns`), the depthwise conv runs on this rank's
+    channels, gathered, and ``out_proj`` is a row product, all-reduced.
+    Where `_splits_scan`, the scan runs on this rank's slice of d_inner,
+    the channels of its ``out_proj`` rows, on the heads they touch (B, C
+    and those heads' dt whole); the gated norm's sum of squares is
+    all-reduced.  Every tensor each rank then uses for its own channels
+    (z, dt, the conv's output, and ``A_log``, ``D``, ``dt_bias``) goes
+    through `copy`, so their gradients are the ranks' shares summed.
+    Otherwise the scan runs whole on every rank, and the gated norm is
+    cut to this rank's ``out_proj`` rows where those are split.
+    """
+    b, s, d = x.shape
+    d_inner, h, hp, n, conv_dim = _dims(cfg)
+    q = min(cfg.ssm_chunk, s)
+    assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
+    z, conv_out, dt = _projections(p, x, cfg, tp)
+    if _splits_scan(p, cfg, tp):
+        z, conv_out, dt = tp.copy(z), tp.copy(conv_out), tp.copy(dt)
+        xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
+        lo = tp.start(d_inner // tp.size)
+        hi = lo + d_inner // tp.size
+        yf = _ssd_channels(p, xc, b_, c_, dt, z, lo, hi, cfg, take=tp.copy)
+        sumsq = tp.copy(tp.reduce((yf * yf).sum(-1, keepdim=True)))
+        scale = p.gate_norm_scale
+        if tp.dim(scale) is None:
+            scale = tp.copy(scale)[lo:hi]
+        y = _norm_channels(yf, sumsq, d_inner, scale)
         return tp.reduce(y.to(x.dtype) @ p.out_proj)
+    xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    a = -torch.exp(p.A_log)                                         # [H]
+    dt = _softplus(dt.float() + p.dt_bias)                          # [B,S,H]
+    y = _ssd(xc.reshape(b, s, h, hp), dt, a, p.D, b_, c_, q)
+    y = _gated_norm(p, y.reshape(b, s, d_inner), z, tp)
+    if tp is not None and tp.dim(p.out_proj) is not None:
+        return tp.reduce(y.to(x.dtype) @ p.out_proj)
+    return y.to(x.dtype) @ p.out_proj
+
+
+def split_ssm(p: SSM, x: torch.Tensor, cfg, parts: int) -> torch.Tensor:
+    """The split scan's plain version, in one process: `apply_ssm`'s
+    output with the scan and the gated norm computed as `parts` ranks of
+    the model axis would (each its slice of d_inner, the sums of squares
+    summed over the slices), the slices concatenated before ``out_proj``.
+    """
+    d_inner, _, _, n, _ = _dims(cfg)
+    z, conv_out, dt = _projections(p, x, cfg, None)
+    xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    width = d_inner // parts
+    yfs = [_ssd_channels(p, xc, b_, c_, dt, z, r * width, (r + 1) * width, cfg)
+           for r in range(parts)]
+    sumsq = sum((yf * yf).sum(-1, keepdim=True) for yf in yfs)
+    scale = p.gate_norm_scale
+    y = torch.cat([_norm_channels(yf, sumsq, d_inner, scale[r * width:(r + 1) * width])
+                   for r, yf in enumerate(yfs)], dim=-1)
     return y.to(x.dtype) @ p.out_proj
 
 

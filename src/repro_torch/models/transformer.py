@@ -53,6 +53,7 @@ from .attention import (
     chunked_causal_attention,
     decode_attention,
     decode_attention_bksd,
+    query_split,
     update_kv_cache,
     update_kv_cache_bksd,
 )
@@ -69,6 +70,7 @@ from .layers import (
     mlp_shapes,
     norm_axes,
     vocab_parallel,
+    whole_columns,
 )
 
 __all__ = [
@@ -206,23 +208,25 @@ class Block(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
 
-        def core(q, k, v):
+        def core(q, k, v, q_blocks=None, q_chunk=cfg.attn_q_chunk):
             return chunked_causal_attention(
                 q,
                 k,
                 v,
-                q_chunk=cfg.attn_q_chunk,
+                q_chunk=q_chunk,
                 kv_chunk=cfg.attn_kv_chunk,
                 window=cfg.window if cfg.attention == "sliding" else None,
                 triangular=triangular,
                 cast_f32=cfg.attn_cast_f32,
                 remat_qblock=cfg.attn_remat,
+                q_blocks=q_blocks,
             )
 
         if tp is not None and tp.size > 1:
             h = self.attn_norm(x)
             return tp_attention(tp, cfg, self.attn, h, h, core, bias=cfg.qkv_bias,
-                                rope=lambda t: apply_rope(t, positions, cfg.rope_theta))
+                                rope=lambda t: apply_rope(t, positions, cfg.rope_theta),
+                                q_chunk=cfg.attn_q_chunk)
         q, k, v = self._qkv(x, positions)
         return core(q, k, v).reshape(b, s, cfg.q_dim) @ self.attn.wo
 
@@ -309,41 +313,39 @@ def _product(x, w, b):
     return y if b is None else y + b
 
 
-def _columns(tp, w, b, part: slice):
-    """Columns `part` of a weight (and its bias) every rank holds whole,
-    through `copy`: the ranks' gradients of their slices are all-reduced."""
-    return tp.copy(w)[:, part], None if b is None else tp.copy(b)[part]
-
-
-def _gathered_product(tp, x, xc, w, b):
-    """``x @ w (+ b)`` whole on every rank: a column product on this
-    rank's shard of `w`, or on its slice of the columns of a whole `w`,
-    all-gathered; computed whole where the columns do not divide the
-    axis.  `xc` is ``tp.copy(x)``."""
-    if tp.dim(w) is None:
-        n = w.shape[-1] // tp.size
-        if w.shape[-1] % tp.size:
-            return _product(x, w, b)
-        w, b = _columns(tp, w, b, slice(tp.start(n), tp.start(n) + n))
-    return tp.gather(_product(xc, w, b), -1)
-
-
-def _split_core(tp, core, q, k, v):
-    """`core` on this rank's share of the (batch, kv head) groups, the
-    groups' outputs all-gathered; whole where the axis does not divide
-    their count."""
+def _split_core(tp, core, q, k, v, q_chunk=None):
+    """`core` on this rank's share of the attention, the shares'
+    outputs all-gathered: its (batch, kv head) groups where the axis
+    divides their count; else its query rows where the axis divides the
+    sequence (`attention.query_split`: ``q_chunk``, a causal core's block
+    size, None for a bidirectional core), k and v whole, through `copy`
+    (every rank reads all of them for its own rows); else whole."""
     b, s, h, d = q.shape
     n_kv = k.shape[2]
-    if (b * n_kv) % tp.size:
+    m = tp.size
+    if (b * n_kv) % m == 0:
+        g = h // n_kv
+        q = q.reshape(b, s, n_kv, g, d).transpose(1, 2).reshape(b * n_kv, s, g, d)
+        k, v = (t.transpose(1, 2).reshape(b * n_kv, t.shape[1], 1, d) for t in (k, v))
+        out = tp.gather(core(tp.split(q, 0), tp.split(k, 0), tp.split(v, 0)), 0)
+        return out.reshape(b, n_kv, s, g, d).transpose(1, 2).reshape(b, s, h, d)
+    split = query_split(s, m, q_chunk)
+    if split is None:
         return core(q, k, v)
-    g = h // n_kv
-    q = q.reshape(b, s, n_kv, g, d).transpose(1, 2).reshape(b * n_kv, s, g, d)
-    k, v = (t.transpose(1, 2).reshape(b * n_kv, t.shape[1], 1, d) for t in (k, v))
-    out = tp.gather(core(tp.split(q, 0), tp.split(k, 0), tp.split(v, 0)), 0)
-    return out.reshape(b, n_kv, s, g, d).transpose(1, 2).reshape(b, s, h, d)
+    size, order = split
+    k, v = tp.copy(k), tp.copy(v)
+    if q_chunk is None:  # one contiguous block a rank
+        return tp.gather(core(tp.split(q, 1), k, v), 1)
+    ranked = [i for blocks in order for i in blocks]  # the blocks in rank order
+    mine = tp.split(q.reshape(b, s // size, size, h, d)[:, ranked], 1)
+    out = core(mine.reshape(b, -1, h, d), k, v, q_blocks=order[tp.rank], q_chunk=size)
+    out = tp.gather(out.reshape(mine.shape), 1)
+    inverse = sorted(range(len(ranked)), key=ranked.__getitem__)  # back to sequence order
+    return out[:, inverse].reshape(b, s, h, d)
 
 
-def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None):
+def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None,
+                 q_chunk: int | None = None):
     """An attention layer's projections, `core` and output product on this
     rank of the model axis (`TensorParallel` `tp`): queries from `h`, keys
     and values from `h_kv` ([B, S, D] each, normed), ``a`` the layer's
@@ -356,9 +358,12 @@ def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None):
     from its shard of ``wk``/``wv`` (or, where those are whole, from the
     slice of their columns that holds those heads), attention on those
     heads, ``wo`` a row product.  Otherwise (a head split across ranks):
-    each projection a column product, gathered whole, the attention split
-    over (batch, kv head) groups, ``wo`` a row product on this rank's
-    slice of its input.
+    each projection a column product, gathered whole
+    (`layers.gathered_columns`), the attention split by `_split_core`,
+    ``wo`` a row product on this rank's slice of its input.  `q_chunk`:
+    a causal `core`'s query block size (it then takes ``q_blocks`` and
+    ``q_chunk``, `attention.chunked_causal_attention`'s); None for a
+    bidirectional one.
     """
     b, s, _ = h.shape
     hd, m, r = cfg.head_dim, tp.size, tp.rank
@@ -375,19 +380,19 @@ def tp_attention(tp, cfg, a, h, h_kv, core, *, bias: bool = False, rope=None):
             k, v = _product(xkv, a.wk, bk), _product(xkv, a.wv, bv)
         else:  # the kv heads this rank's query heads read
             part = slice(r * hl // g * hd, (((r + 1) * hl - 1) // g + 1) * hd)
-            k, v = (_product(xkv, *_columns(tp, w, b_, part))
+            k, v = (_product(xkv, *whole_columns(tp, w, b_, part))
                     for w, b_ in ((a.wk, bk), (a.wv, bv)))
     else:
-        q = _gathered_product(tp, h, xq, a.wq, bq)
-        k = _gathered_product(tp, h_kv, xkv, a.wk, bk)
-        v = _gathered_product(tp, h_kv, xkv, a.wv, bv)
+        q = gathered_columns(tp, h, a.wq, bq, xq)
+        k = gathered_columns(tp, h_kv, a.wk, bk, xkv)
+        v = gathered_columns(tp, h_kv, a.wv, bv, xkv)
     q = q.reshape(b, s, -1, hd)
     k, v = (t.reshape(b, h_kv.shape[1], -1, hd) for t in (k, v))
     if rope is not None:
         q, k = rope(q), rope(k)
     if heads:
         return tp.reduce(core(q, k, v).reshape(b, s, -1) @ a.wo)
-    out = _split_core(tp, core, q, k, v).reshape(b, s, -1)
+    out = _split_core(tp, core, q, k, v, q_chunk).reshape(b, s, -1)
     if tp.dim(a.wo) is not None:
         return tp.reduce(tp.split(out, -1) @ a.wo)
     return out @ a.wo

@@ -10,6 +10,15 @@ reduced configs.  Tolerances (stated where used):
   cumulative sums amplify differences in the order of the additions);
 - logits: atol 1e-5, rtol 1e-5 (moe, vlm) and atol 1e-5, rtol 1e-4 (ssm,
   hybrid); loss: rtol 1e-6; every gradient: rtol 1e-4, atol 1e-6.
+
+The tensor-parallel splits' plain versions, in one process, against the
+whole forms: `split_ssm` (the scan on each rank's slice of d_inner, the
+norm's sums of squares summed) against `apply_ssm`, atol 1e-6, rtol 1e-6
+(the norm's sum over slices rounds otherwise than its mean over the
+whole); `query_split_attention` against `chunked_causal_attention`, bit
+for bit where a rank's blocks are the whole walk's (else atol 1e-6,
+rtol 1e-6), and against `full_cross_attention`, atol 1e-6, rtol 1e-6;
+the zigzag's cover and balance.
 """
 import dataclasses
 
@@ -26,7 +35,7 @@ from repro.models import ssm as ref_ssm  # noqa: E402
 from repro.models import transformer as ref_tfm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import moe, ssm  # noqa: E402
+from repro_torch.models import attention, moe, ssm  # noqa: E402
 from repro_torch.models.transformer import decay_mask, params_from_jax  # noqa: E402
 
 B, S = 2, 32
@@ -89,6 +98,115 @@ def test_apply_ssm_keeps_the_chunk_assertion():
     rcfg, cfg, params, mod = _ssm_pair()
     with pytest.raises(AssertionError, match="ssm_chunk"):
         ssm.apply_ssm(mod, torch.zeros(1, 24, cfg.d_model), cfg)
+
+
+#: d_inner 192 in 6 heads of 32 (the Gloo cases' split scan), the reduced
+#: mamba2's 128 in 8 heads of 16, and hymba's
+SPLIT_SSM = {"split-scan": ("mamba2-130m", {"ssm_expand": 3, "ssm_head_dim": 32}),
+             "mamba2": ("mamba2-130m", {}), "hybrid": ("hymba-1.5b", {})}
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("case", sorted(SPLIT_SSM))
+def test_split_ssm_equals_the_whole_scan(case, parts):
+    """`split_ssm` over `parts` slices of d_inner (a slice a head and a
+    half, half a head, or several heads) against `apply_ssm`, and
+    against the reference's, over four chunks; each slice's scan touches
+    at most its own channels' heads plus two."""
+    arch, extra = SPLIT_SSM[case]
+    rcfg, cfg = _configs(arch, **extra)
+    rng = np.random.default_rng(2)
+    h = cfg.ssm_n_heads
+    params = dict(ref_ssm.init_ssm(jax.random.PRNGKey(0), rcfg, jnp.float32),
+                  A_log=jnp.asarray(rng.normal(0, 0.5, h), jnp.float32),
+                  D=jnp.asarray(rng.normal(1, 0.3, h), jnp.float32),
+                  dt_bias=jnp.asarray(rng.normal(0, 0.5, h), jnp.float32),
+                  gate_norm_scale=jnp.asarray(rng.normal(1, 0.1, cfg.ssm_d_inner),
+                                              jnp.float32))
+    mod = _load(ssm.SSM(cfg, torch.float32, "cpu", torch.Generator()), params)
+    x = rng.standard_normal((B, 64, cfg.d_model)).astype(np.float32)
+    with torch.no_grad():
+        whole = ssm.apply_ssm(mod, torch.from_numpy(x), cfg)
+        got = ssm.split_ssm(mod, torch.from_numpy(x), cfg, parts)
+    torch.testing.assert_close(got, whole, atol=1e-6, rtol=1e-6)
+    want = np.asarray(ref_ssm.apply_ssm(params, jnp.asarray(x), rcfg))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+    width, hp = cfg.ssm_d_inner // parts, cfg.ssm_head_dim
+    for r in range(parts):
+        h0, h1 = ssm.channel_heads(r * width, (r + 1) * width, hp)
+        assert h0 * hp <= r * width and (r + 1) * width <= h1 * hp
+        assert (h1 - h0) * hp <= width + 2 * hp
+
+
+#: GQA groups of 1, 3 and 5: (query heads, kv heads)
+GROUPS = {1: (2, 2), 3: (6, 2), 5: (5, 1)}
+
+
+@pytest.mark.parametrize("parts", [2, 4, 16])
+@pytest.mark.parametrize("window", [None, 20], ids=["causal", "window-20"])
+@pytest.mark.parametrize("triangular", [False, True], ids=["full-walk", "triangular"])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_query_split_equals_the_whole_causal_attention(group, triangular, window, parts):
+    """128 positions in chunks of 16 over `parts` ranks in zigzag: 2 and
+    4 ranks take whole 16-row blocks and equal the whole walk bit for
+    bit; 16 ranks' 8 rows are halved to two 4-row blocks each (atol
+    1e-6, rtol 1e-6)."""
+    h, kv = GROUPS[group]
+    rng = np.random.default_rng(group)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 128, n, 16)).astype(np.float32))
+               for n in (h, kv, kv))
+
+    def core(q_, k_, v_, q_blocks=None, q_chunk=16):
+        return attention.chunked_causal_attention(
+            q_, k_, v_, q_chunk=q_chunk, kv_chunk=16, window=window, triangular=triangular,
+            remat_qblock=False, q_blocks=q_blocks)
+
+    whole = core(q, k, v)
+    got = attention.query_split_attention(core, q, k, v, parts, q_chunk=16)
+    size = attention.query_split(128, parts, 16)[0]
+    assert size == (16 if parts < 16 else 4)
+    if size == 16:
+        assert torch.equal(got, whole)
+    else:
+        torch.testing.assert_close(got, whole, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_query_split_equals_the_whole_bidirectional_attention(group, parts):
+    """96 queries over 40 keys in `parts` contiguous row blocks."""
+    h, kv = GROUPS[group]
+    rng = np.random.default_rng(10 + group)
+    q = torch.from_numpy(rng.standard_normal((2, 96, h, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 40, kv, 16)).astype(np.float32))
+            for _ in range(2))
+    whole = attention.full_cross_attention(q, k, v)
+    got = attention.query_split_attention(attention.full_cross_attention, q, k, v, parts)
+    torch.testing.assert_close(got, whole, atol=1e-6, rtol=1e-6)
+    assert attention.query_split(96, parts, None) == (96 // parts, [[r] for r in range(parts)])
+
+
+@pytest.mark.parametrize("s,parts,q_chunk,kv_chunk", [
+    (256, 2, 32, 32), (256, 4, 32, 32), (1024, 4, 64, 32), (512, 8, 32, 64),
+    (32768, 16, 1024, 1024), (16384, 16, 1024, 1024), (8192, 16, 1024, 1024)])
+def test_zigzag_covers_each_block_once_and_balances_the_triangular_walk(
+        s, parts, q_chunk, kv_chunk):
+    """Each query block goes to one rank; under `triangular` (no window)
+    every rank's blocks walk as many KV chunks, so rank 0, which the dry
+    run counts, does the busiest rank's work."""
+    size, order = attention.query_split(s, parts, q_chunk)
+    assert sorted(i for blocks in order for i in blocks) == list(range(s // size))
+    assert len({len(blocks) for blocks in order}) == 1 and len(order[0]) % 2 == 0
+    walked = [sum(len(attention.kv_chunks(i, size, kv_chunk, s // kv_chunk, None, True))
+                  for i in blocks) for blocks in order]
+    assert len(set(walked)) == 1, walked
+    assert attention.zigzag_blocks(8, 4) == [[0, 7], [1, 6], [2, 5], [3, 4]]
+
+
+def test_query_split_refuses_what_does_not_divide():
+    assert attention.query_split(100, 16, 32) is None
+    assert attention.query_split(96, 16, None) == (6, [[r] for r in range(16)])
+    assert attention.query_split(96, 2, 32) is None  # 48 rows a rank: no whole 32-row blocks
 
 
 def test_decode_ssm():

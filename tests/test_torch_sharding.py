@@ -28,7 +28,11 @@
   interpreter with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``,
   as `tests/conftest.py`'s shard rig sets it) for paper-gpt-125m and
   phi3.5-moe reduced; paper-gpt, hymba and mamba2 reduced on (1, 2)
-  against the port's one-device step, biases and norm scales drawn.
+  against the port's one-device step, biases and norm scales drawn; the
+  SSD scan split over `model` (mamba2 on (1, 2) and (1, 4), hymba on
+  (1, 4)) and the attention split over query blocks (one row: paper-gpt
+  on (1, 2) and (1, 4), the prefill also under ``triangular``, whisper
+  on (1, 2)) against the same, every whole parameter equal on all ranks.
 """
 import dataclasses
 import json
@@ -791,11 +795,25 @@ state.params.load_state_dict(case["params"])
 state, m = step(shard_train_state(state, state_sh), case["batch"])
 params = {n: p.full_tensor() for n, p in state.params.named_parameters()}
 full = logits.full_tensor()
+# every rank's copy of each whole parameter, against rank 0's
+whole = {n: p.to_local() for n, p in state.params.named_parameters()
+         if all(pl.is_replicate() for pl in p.placements)}
+copies = [None] * dist.get_world_size()
+dist.all_gather_object(copies, whole)
+spread = {n: max(float((c[n] - w).abs().max()) for c in copies) for n, w in whole.items()}
+tri = None
+if case.get("triangular"):
+    prefill, _ = build_prefill_step(model, mesh, plan, triangular=True)
+    module = model.init(device="cpu")
+    module.load_state_dict(case["params"])
+    tri = prefill(shard_params(module, param_sh),
+                  {k: v for k, v in case["batch"].items() if k != "labels"}).full_tensor()
 if rank == 0:
     torch.save(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), params=params,
                     prefill=full, logits_placements=[repr(p) for p in logits.placements],
                     logits_local=list(logits.to_local().shape),
-                    stacks=sorted(state_sh.stacks)), out_path)
+                    stacks=sorted(state_sh.stacks), whole_spread=spread,
+                    prefill_triangular=tri), out_path)
 dist.destroy_process_group()
 """
 
@@ -804,8 +822,8 @@ TP_REF_CASES = [("paper-gpt-125m", 1, 2), ("paper-gpt-125m", 2, 2),
                 ("phi3.5-moe-42b-a6.6b", 1, 2), ("phi3.5-moe-42b-a6.6b", 2, 2)]
 #: against the port's one-device step: name -> (arch reduced, config
 #: changes, plan rules changed from BASELINE_PLAN's or another plan's
-#: name, (data, model)).  Under DP_FSDP_PLAN `model` carries the batch,
-#: so every weight is stored split and gathered at use.
+#: name, (data, model)[, `_tp_case` options]).  Under DP_FSDP_PLAN `model`
+#: carries the batch, so every weight is stored split and gathered at use.
 #: Whole KV projections (the dry run's GQA rule) make each rank slice the
 #: KV heads its query heads read; 3 heads split a head across the 2
 #: ranks, so the projections are gathered whole (from the shard of ``wq``,
@@ -814,6 +832,17 @@ TP_REF_CASES = [("paper-gpt-125m", 1, 2), ("paper-gpt-125m", 2, 2),
 #: projections; the encoder-decoder's cross-attention reads the encoder's
 #: states; on (2, 2) a hidden dim of 127 leaves the MLP whole and
 #: ``bi`` with no dim `data` divides, so ZeRO-1 stacks its moments.
+#: The split scan: d_inner 192 in 6 heads of 32, so on (1, 4) a rank's 48
+#: channels are 1.5 heads, and ``in_proj``'s 422 columns are no multiple
+#: of 4 (each rank a 4th of the first 420, all of the last 2); hymba on
+#: (1, 4) splits its scan (2 of 8 heads a rank) beside its windowed
+#: attention (32 positions of 64) on Megatron heads.  The query split: one
+#: row, so neither 1 x 1 KV head nor 3 heads divide the axis; 64 positions
+#: in zigzag blocks of 16 (one 32-row block a rank is halved), the prefill
+#: also under ``triangular``; whisper's encoder (16 frames) and
+#: cross-attention in contiguous rows, its decoder in zigzag blocks.
+_SPLIT_SCAN = {"ssm_expand": 3, "ssm_head_dim": 32}
+_QUERY_SPLIT = {"n_heads": 3, "n_kv_heads": 1}
 TP_ONE_CASES = {
     "dense": ("paper-gpt-125m", {}, {}, (1, 2)),
     "dense-kv-whole": ("paper-gpt-125m", {}, {"kv_heads": None}, (1, 2)),
@@ -824,44 +853,64 @@ TP_ONE_CASES = {
     "ssm": ("mamba2-130m", {}, {}, (1, 2)),
     "encdec": ("whisper-base", {}, {}, (1, 2)),
     "fsdp": ("paper-gpt-125m", {}, "DP_FSDP_PLAN", (1, 2)),
+    "ssm-split-scan-1x2": ("mamba2-130m", _SPLIT_SCAN, {}, (1, 2)),
+    "ssm-split-scan-1x4": ("mamba2-130m", _SPLIT_SCAN, {}, (1, 4)),
+    "hybrid-split-1x4": ("hymba-1.5b", {}, {}, (1, 4)),
+    "query-split-1x2": ("paper-gpt-125m", _QUERY_SPLIT, {}, (1, 2),
+                        {"batch": 1, "triangular": True}),
+    "query-split-1x4": ("paper-gpt-125m", _QUERY_SPLIT, {}, (1, 4),
+                        {"batch": 1, "triangular": True}),
+    "encdec-query-split-1x2": ("whisper-base", {"n_heads": 3, "n_kv_heads": 3}, {}, (1, 2),
+                               {"batch": 1}),
 }
 
 
-def _tp_case(arch, changes, rules, seq=64):
+def _tp_case(arch, changes, rules, batch=4, seq=64, triangular=False):
     """The case for the ranks: `arch` reduced (with `changes`), its seed-0
     weights with every bias and norm scale drawn away from its 0 or 1 (so
-    one added on the wrong side of an all-reduce shows), a 4 x `seq`
-    batch, and the plan `rules` names, or BASELINE_PLAN with `rules`."""
+    one added on the wrong side of an all-reduce shows), a `batch` x `seq`
+    batch, and the plan `rules` names, or BASELINE_PLAN with `rules`;
+    with `triangular`, the prefill is also run under it."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     model = build_model(cfg)
     rng = np.random.default_rng(5)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.int32))
-             for k in ("tokens", "labels")}
-    batch["labels"][:2, :5] = -1
+    tokens = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq)).astype(np.int32))
+              for k in ("tokens", "labels")}
+    tokens["labels"][:2, :5] = -1
+    batch_ = {k: v[:batch].clone() for k, v in tokens.items()}
     if cfg.family == "encdec":
-        batch["frames"] = torch.from_numpy(rng.normal(
-            0, 1, (4, seq // cfg.enc_seq_divisor, cfg.d_model)).astype(np.float32))
+        batch_["frames"] = torch.from_numpy(rng.normal(
+            0, 1, (batch, seq // cfg.enc_seq_divisor, cfg.d_model)).astype(np.float32))
     weights = {n: p.detach().clone() if p.dim() > 1 else
                p.detach() + torch.from_numpy(rng.normal(0, 0.1, p.shape).astype(np.float32))
                for n, p in model.init(device="cpu").state_dict().items()}
     plan = (getattr(sharding, rules) if isinstance(rules, str) else dataclasses.replace(
         sharding.BASELINE_PLAN, rules={**sharding.BASELINE_PLAN.rules, **rules}))
-    return dict(cfg=cfg, opt=_OPT, params=weights, batch=batch, plan=plan)
+    return dict(cfg=cfg, opt=_OPT, params=weights, batch=batch_, plan=plan,
+                triangular=triangular)
 
 
 def _one_device_tp(case):
-    """The port's one-device train step and prefill of a `_tp_case`."""
+    """The port's one-device train step and prefill (and, where the case
+    asks, the prefill under ``triangular``) of a `_tp_case`."""
     model, weights, batch = build_model(case["cfg"]), case["params"], case["batch"]
     mesh = port_mesh.make_local_mesh(device="cpu")
     module = model.init(device="cpu")
     module.load_state_dict(weights)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
     prefill, _ = steps.build_prefill_step(model, mesh, sharding.BASELINE_PLAN)
-    logits = prefill(module, {k: v for k, v in batch.items() if k != "labels"})
+    logits = prefill(module, inputs)
+    tri = None
+    if case["triangular"]:
+        prefill, _ = steps.build_prefill_step(model, mesh, sharding.BASELINE_PLAN,
+                                              triangular=True)
+        tri = prefill(module, inputs)
     step, _ = steps.build_train_step(model, mesh, sharding.BASELINE_PLAN, AdamWConfig(**_OPT))
     state = steps.init_train_state(model, device="cpu")
     state.params.load_state_dict(weights)
     state, m = step(state, batch)
     return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), prefill=logits,
+                prefill_triangular=tri,
                 params={n: p.detach().clone() for n, p in state.params.named_parameters()})
 
 
@@ -873,7 +922,8 @@ def tp_runs(one_device, one_device_moe, tmp_path_factory):
     one-device steps of `TP_ONE_CASES`."""
     tmp = tmp_path_factory.mktemp("tp")
     cases = {"paper-gpt-125m": one_device, "phi3.5-moe-42b-a6.6b": one_device_moe}
-    one_cases = {name: _tp_case(*spec[:3]) for name, spec in TP_ONE_CASES.items()}
+    one_cases = {name: _tp_case(*spec[:3], **(spec[4:] or [{}])[0])
+                 for name, spec in TP_ONE_CASES.items()}
     for name, case in one_cases.items():
         torch.save(case, tmp / f"{name}.pt")
     procs, outs = [], {}
@@ -893,12 +943,17 @@ def tp_runs(one_device, one_device_moe, tmp_path_factory):
             _TP_RANK, tmp, f"{arch}_{data}x{model_axis}", cases[arch]["case"],
             "BASELINE_PLAN", data, model_axis)
         procs += ranks
-    for name, (*_, (data, model_axis)) in TP_ONE_CASES.items():
+    for name, (*_, (data, model_axis)) in ((n, spec[:4]) for n, spec in TP_ONE_CASES.items()):
         ranks, outs[name] = _gloo_ranks(_TP_RANK, tmp, f"one_{name}", tmp / f"{name}.pt",
                                         "BASELINE_PLAN", data, model_axis)
         procs += ranks
     try:
-        ones = {name: _one_device_tp(case) for name, case in one_cases.items()}
+        # the one-device step of a case split on several meshes, once
+        same = {name: (spec[:2], spec[4:]) for name, spec in TP_ONE_CASES.items()}
+        ones = {}
+        for name, case in one_cases.items():
+            first = next(n for n in one_cases if same[n] == same[name])
+            ones[name] = ones[first] if first in ones else _one_device_tp(case)
     finally:
         _wait(procs, 300)
     ref = {}
@@ -937,9 +992,13 @@ def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
     the attention's layouts; the hybrid (sliding-window attention beside
     the SSD mixer) and the SSM family's ``in_proj`` a column product
     gathered before its split, the conv on each rank's channels,
-    ``out_proj`` a row product; the encoder-decoder's self- and
-    cross-attention; ZeRO-1's stacked moments updated and written back
-    to their layers."""
+    ``out_proj`` a row product; the scan on each rank's slice of d_inner,
+    its gated norm's sum of squares all-reduced; the attention split over
+    query blocks, the prefill also under ``triangular``; the
+    encoder-decoder's self- and cross-attention; ZeRO-1's stacked moments
+    updated and written back to their layers.  After the step every whole
+    parameter (``A_log``, ``D``, ``dt_bias``, the norms, a whole
+    ``in_proj``, ...) is the same on every rank."""
     got, one = tp_runs["port"][case], tp_runs["ones"][case]
     assert ("layers.mlp.bi" in got["stacks"]) == (case == "dense-stacked-moments")
     # the logits' vocab over `model` where the plan computes on its shards
@@ -948,6 +1007,13 @@ def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
     assert got["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-5)
     _close_params(got["params"], one["params"], tp_runs["lr"])
     torch.testing.assert_close(got["prefill"], one["prefill"], rtol=1e-5, atol=1e-5)
+    if one["prefill_triangular"] is not None:
+        torch.testing.assert_close(got["prefill_triangular"], one["prefill_triangular"],
+                                   rtol=1e-5, atol=1e-5)
+    spread = got["whole_spread"]
+    assert spread and not {n: d for n, d in spread.items() if d != 0.0}
+    if "ssm" in case or "hybrid" in case:
+        assert {f"layers.0.ssm.{n}" for n in ("A_log", "D", "dt_bias")} <= set(spread)
 
 
 # ---------------------------------------------------------------------------
