@@ -176,7 +176,15 @@ package — in these phases, and exits non-zero if any fails:
            8 KV) over 32,768 positions, with and without `triangular`,
            and of whisper's cross-attention (32,768 queries over 8,192
            frames), against the whole attention within 1e-6 (each case's
-           error, bit-identity and seconds printed).  The train and serve
+           error, bit-identity and seconds printed); meanwhile two Gloo
+           ranks on the CPU, under this machine's own torch, run the
+           phi3.5-moe train step (reduced) under BASELINE_PLAN on (2, 1),
+           its experts' hidden dim stored over `data` and gathered in
+           each layer, and the split scan's prefill (mamba2 reduced,
+           d_inner 192 in 6 heads of 32) on (1, 2), held against the
+           one-device steps (loss and grad norm within rel 1e-5, 99.9 %
+           of parameter elements within 1e-6 and all within 2 x lr,
+           logits within 1e-5; a `mesh-gloo` line).  The train and serve
            phases above build their steps through the same mesh and
            plans;
   dryrun   `python -m repro_torch.launch.dryrun` on a fake 256/512-rank
@@ -196,7 +204,12 @@ package — in these phases, and exits non-zero if any fails:
            own, and the decode rows' FLOPs, temp and all-gather bytes on
            another (each rank decodes its rows against its slices of the
            caches under DECODE_PLAN), and the prefill rows' on a
-           `dryrun-split-scan` line; then the dry run of the train phase's own step
+           `dryrun-split-scan` line; phi3.5-moe train_4k on (16, 16) at
+           full width cut to 2 layers, four microbatches, on the card and
+           on the CPU in two more subprocesses: the rows equal, its temp,
+           all-gather and reduce-scatter bytes on a `dryrun-moe-train`
+           line (each layer gathers its experts where it reads them);
+           then the dry run of the train phase's own step
            (paper-gpt-125m, one device, 8 x 512, bf16) beside that
            phase's measured peak: its `args_bytes` must not exceed it.
 
@@ -1912,6 +1925,146 @@ def _plain_train_step(torch, model, opt):
     return step
 
 
+#: the mesh phase's Gloo cases, on CPU tensors under the card machine's
+#: own torch: name -> (arch reduced, config changes, (data, model)).  The
+#: MoE train step under BASELINE_PLAN on (2, 1): the experts' hidden dim
+#: stored over `data`, gathered in each layer, its gradient
+#: reduce-scattered.  The SSM prefill on (1, 2) with d_inner 192 in 6
+#: heads of 32: the scan split over `model`, each rank computing its own
+#: channels' projections (``in_proj``'s 422 columns split over the two
+#: ranks: the weight gathered, no projection).
+GLOO_CASES = {"moe-train": ("phi3.5-moe-42b-a6.6b", {}, (2, 1)),
+              "ssm-prefill": ("mamba2-130m", {"ssm_expand": 3, "ssm_head_dim": 32}, (1, 2))}
+GLOO_OPT = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+#: loss and grad norm (rel), the prefill's logits (atol, rtol): the Gloo
+#: cases of `tests/test_torch_sharding.py`
+GLOO_TOL = (1e-5, (1e-5, 1e-5))
+GLOO_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.distributed.sharding import BASELINE_PLAN
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (
+    build_prefill_step, build_train_step, init_train_state, shard_params, shard_train_state)
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+
+rank, init, case_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+cases = torch.load(case_path, weights_only=False)
+out = {}
+case = cases["moe-train"]
+model = build_model(case["cfg"])
+step, state_sh = build_train_step(model, make_local_mesh(*case["mesh"], device="cpu"),
+                                  BASELINE_PLAN, AdamWConfig(**case["opt"]))
+state = init_train_state(model, device="cpu")
+state.params.load_state_dict(case["params"])
+state, m = step(shard_train_state(state, state_sh), case["batch"])
+out["moe-train"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), params={
+    n: p.full_tensor() for n, p in state.params.named_parameters()})
+case = cases["ssm-prefill"]
+model = build_model(case["cfg"])
+prefill, param_sh = build_prefill_step(model, make_local_mesh(*case["mesh"], device="cpu"),
+                                       BASELINE_PLAN)
+module = model.init(device="cpu")
+module.load_state_dict(case["params"])
+out["ssm-prefill"] = dict(logits=prefill(shard_params(module, param_sh),
+                                         {"tokens": case["batch"]["tokens"]}).full_tensor())
+if rank == 0:
+    torch.save(out, out_path)
+dist.destroy_process_group()
+"""
+
+
+def gloo_cases(torch, np):
+    """(the two Gloo ranks of `GLOO_CASES`, started; a function that
+    waits for them and holds rank 0's results against the one-device
+    steps, run here on the CPU meanwhile)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import BASELINE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_prefill_step, build_train_step, init_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    folder = os.path.join(ROOT, "build", "gloo")
+    os.makedirs(folder, exist_ok=True)
+    for name in os.listdir(folder):
+        os.remove(os.path.join(folder, name))
+    rng = np.random.default_rng(5)
+    cases = {}
+    for name, (arch, changes, mesh) in GLOO_CASES.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32))
+                 for k in ("tokens", "labels")}
+        batch["labels"][:2, :5] = -1
+        params = build_model(cfg).init(generator=torch.Generator().manual_seed(0),
+                                       device="cpu").state_dict()
+        cases[name] = dict(cfg=cfg, mesh=mesh, opt=GLOO_OPT, params=params, batch=batch)
+    case_path, out_path = os.path.join(folder, "cases.pt"), os.path.join(folder, "out.pt")
+    torch.save(cases, case_path)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_RANK, str(r), f"file://{folder}/init", case_path, out_path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for r in range(2)]
+
+    def held() -> dict:
+        try:
+            one = {}
+            case = cases["moe-train"]
+            model = build_model(case["cfg"])
+            step, _ = build_train_step(model, make_local_mesh(device="cpu"), BASELINE_PLAN,
+                                       AdamWConfig(**case["opt"]))
+            state = init_train_state(model, device="cpu")
+            state.params.load_state_dict(case["params"])
+            state, m = step(state, case["batch"])
+            one["moe-train"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                    params=dict(state.params.named_parameters()))
+            case = cases["ssm-prefill"]
+            model = build_model(case["cfg"])
+            prefill, _ = build_prefill_step(model, make_local_mesh(device="cpu"), BASELINE_PLAN)
+            module = model.init(device="cpu")
+            module.load_state_dict(case["params"])
+            one["ssm-prefill"] = dict(logits=prefill(module, {"tokens": case["batch"]["tokens"]}))
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise AssertionError(f"Gloo rank exited {p.returncode}: {err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        got = torch.load(out_path, weights_only=False)
+        rel, (atol, rtol) = GLOO_TOL
+        lr = GLOO_OPT["peak_lr"]
+        g, w = got["moe-train"], one["moe-train"]
+        for key in ("loss", "grad_norm"):
+            if abs(g[key] - w[key]) > rel * abs(w[key]):
+                raise AssertionError(f"Gloo moe-train {key} {g[key]} vs one device {w[key]}")
+        off, total, worst = close_params(g["params"], w["params"], lr)
+        if off > 0.001 * total:
+            raise AssertionError(f"Gloo moe-train: {off} of {total} elements off by > 1e-6")
+        logits, want = got["ssm-prefill"]["logits"], one["ssm-prefill"]["logits"]
+        err = float((logits - want).abs().max())
+        if not torch.allclose(logits, want, atol=atol, rtol=rtol):
+            raise AssertionError(f"Gloo ssm-prefill logits {err} from the one-device step's")
+        return {"torch": torch.__version__, "seconds": time.perf_counter() - t0,
+                "moe-train": dict(loss=g["loss"], grad_norm=g["grad_norm"],
+                                  params_off=off, params_max_abs_err=worst),
+                "ssm-prefill": dict(max_abs_err=err)}
+
+    return held
+
+
 def mesh_phase(torch, np) -> dict:
     """The mesh on the card: `make_local_mesh()` is one device of cuda:0
     with no process group; the train step built on it under BASELINE_PLAN
@@ -1923,7 +2076,10 @@ def mesh_phase(torch, np) -> dict:
     split, so the tensor-parallel path (a context of None) is the plain
     code; the card holds one rank, so a tensor-parallel step's values are
     held on the CPU over Gloo ranks (`tests/test_torch_sharding.py`) and
-    its counts here by the dryrun phase."""
+    its counts here by the dryrun phase.  Two Gloo ranks on the CPU
+    (`GLOO_CASES`: the MoE train step with its experts stored split over
+    `data`, the split scan's prefill) under the card machine's own
+    torch, held against the one-device steps (`gloo_cases`)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1942,6 +2098,7 @@ def mesh_phase(torch, np) -> dict:
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
 
+    gloo = gloo_cases(torch, np)  # the CPU ranks run beside the card's cases
     mesh = make_local_mesh()
     if (mesh.size() != 1 or mesh.device_type != "cuda" or tuple(mesh.shape) != (1, 1)
             or dist.is_initialized()):
@@ -2011,6 +2168,8 @@ def mesh_phase(torch, np) -> dict:
         for k, (deq, err) in step_card.items():
             if not (torch.equal(deq, step_cpu[k][0]) and torch.equal(err, step_cpu[k][1])):
                 raise AssertionError(f"compress_grads on the card: {k} differs from the CPU")
+    gloo_results = gloo()
+    print("mesh-gloo " + json.dumps(gloo_results), flush=True)
     return dict(mesh=str(mesh), mesh_shape=list(mesh.shape), layers=MESH_LAYERS,
                 train_steps=MESH_TRAIN_STEPS, losses=mesh_losses,
                 decode_steps=seq_len, split_softmax_max_abs_err=split_errors,
@@ -2156,6 +2315,24 @@ DRYRUN_CELLS = [
 ]
 #: a row's wall-clock fields, the only ones a card row may differ in
 DRYRUN_CLOCKS = ("compile_s", "delta_s", "wall_s")
+#: the dryrun phase's phi3.5-moe train_4k on (16, 16) at full width cut
+#: to this many layers (four microbatches): the experts gathered in each
+#: layer, their gradients kept on their shards
+DRYRUN_MOE_LAYERS = 2
+DRYRUN_MOE_CELL = r"""
+import dataclasses, json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.distributed.sharding import BASELINE_PLAN
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+
+layers, device = int(sys.argv[1]), sys.argv[2]
+cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=layers)
+with dryrun.fake_group():
+    got = dryrun.measure_cell(cfg, SHAPES["train_4k"], make_production_mesh(device_type=device),
+                              BASELINE_PLAN, device, accum=dryrun.TRAIN_ACCUM)
+print(json.dumps({"memory": got["memory"], "costs": dataclasses.asdict(got["costs"])}))
+"""
 
 
 def failed_rows(out_dir: str) -> dict:
@@ -2199,12 +2376,21 @@ def dryrun_phase(torch, train_peak: int) -> dict:
          "--out", os.path.join(out_dir, device)] + flags,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for device in ("cuda", "cpu") for arch, shape, mesh, flags in DRYRUN_CELLS]
+    moe = {device: subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_MOE_CELL, str(DRYRUN_MOE_LAYERS), device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for device in ("cuda", "cpu")}
+    procs += list(moe.values())
+    moe_rows = {}
     try:
         for p in procs:
             out, err = p.communicate(timeout=600)
             if p.returncode != 0:  # a failed cell's error is in its row
                 raise AssertionError(f"dry run {p.args[3:11]} exited {p.returncode}: "
                                      f"{out[-1000:]} {err[-2000:]} {failed_rows(out_dir)}")
+            for device, q in moe.items():
+                if q is p:
+                    moe_rows[device] = json.loads(out.splitlines()[-1])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2227,6 +2413,17 @@ def dryrun_phase(torch, train_peak: int) -> dict:
         if row != rows["cpu"][name]:
             keys = sorted(k for k in row if row[k] != rows["cpu"][name].get(k))
             raise AssertionError(f"dry run {name}: card row differs from the CPU's in {keys}")
+
+    if moe_rows["cuda"] != moe_rows["cpu"]:
+        raise AssertionError(f"dry run phi3.5-moe train_4k at {DRYRUN_MOE_LAYERS} layers: "
+                             f"card {moe_rows['cuda']} vs CPU {moe_rows['cpu']}")
+    moe_costs = moe_rows["cuda"]["costs"]
+    print("dryrun-moe-train " + json.dumps({
+        "cell": f"phi3.5-moe-42b-a6.6b train_4k (16, 16), {DRYRUN_MOE_LAYERS} layers",
+        "temp_bytes": moe_rows["cuda"]["memory"]["temp_bytes"],
+        "all_gather_bytes": moe_costs["coll_by_kind"]["all-gather"],
+        "reduce_scatter_bytes": moe_costs["coll_by_kind"]["reduce-scatter"],
+        "flops_per_device": moe_costs["flops"]}), flush=True)
 
     before = torch.cuda.memory_allocated()
     cell = dryrun.run_cell("mamba2-130m", "decode_32k", "single", device="cuda")
@@ -2280,9 +2477,11 @@ def dryrun_phase(torch, train_peak: int) -> dict:
                    "total_per_device_gib": row["memory"]["total_per_device_gib"],
                    "dominant": row["roofline"]["dominant"]} if row["status"] == "ok" else {})
                for name, row in rows["cuda"].items()}
-    return dict(wall_s=wall, rows=summary, train_step=dict(
+    train_step = dict(
         shape=[batch, seq], memory=train["memory"], measured_peak_bytes=train_peak,
-        predicted_total_bytes=round(train["memory"]["total_per_device_gib"] * 2**30)))
+        predicted_total_bytes=round(train["memory"]["total_per_device_gib"] * 2**30))
+    return dict(wall_s=wall, rows=summary, moe_train=moe_rows["cuda"]["memory"],
+                train_step=train_step)
 
 
 def profile_phase(torch, serve_fleet, label, argv) -> None:

@@ -195,7 +195,8 @@ def compute_placements(sh: Sharding, plan: ShardingPlan,
 
     A split over an axis of the plan's ``batch_axes`` is storage (FSDP,
     `DP_FSDP_PLAN`'s ``model``, `BASELINE_PLAN`'s ``expert_mlp`` over
-    ``data``): the weight is gathered at use, ``Replicate()``, unless the
+    ``data``): the weight is computed whole, ``Replicate()``, gathered by
+    the layer that uses it (`tensor_parallel.gathered`), unless the
     split dim's logical axis (`logical`, one per dim) is in `keep`
     (`SERVE_SHARDED_ON_BATCH` in a serve step).  A split over any other
     axis is tensor or expert parallelism (`BASELINE_PLAN`'s heads,
@@ -217,13 +218,16 @@ def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan,
     shardings (`axes`, `keep`: `compute_placements`' arguments, by
     parameter name), or None on a mesh of one device.  Its ``dims`` are
     the dims `compute_placements` leaves split over a model axis, and
-    its ``batch_dims`` those it leaves split over batch axes; its
+    its ``batch_dims`` those it leaves split over batch axes, its
+    ``stored`` those it gathers over batch axes (the weight is handed
+    over as its storage shard and gathered where it is used); its
     ``batch`` the plan's batch axes of more than one rank.  One mesh axis
     at most may carry model splits; the context is over that axis, else
     over the plan's cache-sequence axis where the mesh has one, else of
     one rank (no group)."""
     dims: dict[str, int] = {}
     batch_dims: dict[str, tuple[int, tuple[int, ...]]] = {}
+    stored: dict[str, tuple[tuple[int, int], ...]] = {}
     found: set[int] = set()
     mesh = next(iter(shardings.values())).mesh
     if mesh.size() == 1:
@@ -233,7 +237,10 @@ def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan,
     batch = tuple(MeshAxis(mesh.get_group(a).group_name, mesh.get_local_rank(a),
                            axis_size(mesh, a)) for a in batch_names)
     for name, sh in shardings.items():
-        for i, p in enumerate(compute_placements(sh, plan, (axes or {}).get(name, ()), keep)):
+        computed = compute_placements(sh, plan, (axes or {}).get(name, ()), keep)
+        for i, (p, kept) in enumerate(zip(computed, sh.placements)):
+            if isinstance(kept, Shard) and not isinstance(p, Shard):
+                stored[name] = stored.get(name, ()) + ((kept.dim, batch_names.index(names[i])),)
             if not isinstance(p, Shard):
                 continue
             if names[i] in plan.batch_axes:
@@ -253,10 +260,10 @@ def tensor_parallel(shardings: Mapping[str, Sharding], plan: ShardingPlan,
                      and axis_size(mesh, a) > 1 and a not in plan.batch_axes), None)
     if axis is None:
         return TensorParallel(group="", rank=0, size=1, dims={}, batch=batch,
-                              batch_dims=batch_dims)
+                              batch_dims=batch_dims, stored=stored)
     return TensorParallel(group=mesh.get_group(axis).group_name,
                           rank=mesh.get_local_rank(axis), size=axis_size(mesh, axis),
-                          dims=dims, batch=batch, batch_dims=batch_dims)
+                          dims=dims, batch=batch, batch_dims=batch_dims, stored=stored)
 
 
 def _axes_filter(mesh: DeviceMesh, axes: MeshAxes, used: set[str]) -> MeshAxes:

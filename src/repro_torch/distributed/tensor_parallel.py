@@ -26,6 +26,16 @@ others.  The MoE block reads them to form the reference's global
 dispatch groups.  A context of one rank on the model axis (``size``
 1, no group) issues no model-axis collective.
 
+A weight stored split over batch axes that the step computes whole
+(FSDP: `DP_FSDP_PLAN`'s ``model``, `BASELINE_PLAN`'s experts' hidden
+dim over ``data`` in a train or prefill step) is handed to the model as
+its storage shard; `gathered` puts its whole copy in its module's place
+for one block of code, one layer at a time (all-gather over the axes it
+is stored on forward, a reduce-scatter of its gradient over the same
+axes backward, `_GatherStored`), and the shard back after.  Inside a
+layer under `torch.utils.checkpoint` the copy lives while the layer
+computes, and the recompute gathers it again.
+
 A decode step also reads `caches`: the keys of the caches whose
 sequence is split over the model axis; the attention then combines its
 softmax over the ranks with `all_max` and `all_sum`, collectives of
@@ -40,12 +50,14 @@ recomputed forward issues them again in the same order on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping
 
 import torch
+from torch import nn
 
-__all__ = ["MeshAxis", "TensorParallel"]
+__all__ = ["MeshAxis", "TensorParallel", "gathered"]
 
 _ops = torch.ops._c10d_functional
 
@@ -129,6 +141,21 @@ class _GatherBatch(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherStored(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, on, tp):
+        ctx.on, ctx.tp = on, tp
+        for dim, i in reversed(on):  # minor first: a dim split twice ends up major-first
+            w = _all_gather(w, dim, tp.batch[i].size, tp.batch[i].group)
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, i in ctx.on:
+            g = _reduce_scatter(g, dim, ctx.tp.batch[i].size, ctx.tp.batch[i].group)
+        return g, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshAxis:
     """One mesh axis as a rank sees it: its group's name, this rank's
@@ -148,26 +175,35 @@ class TensorParallel:
     `dim` then reads.  `batch`: the batch axes of more than one rank;
     `batch_dims`: for each parameter computed on its shard over batch
     axes, (the dim, the positions in `batch` of the axes it is split
-    over).  `caches`: the caches split over the model axis."""
+    over); `stored`: for each parameter stored split over batch axes and
+    computed whole, its (dim, position in `batch`) pairs in mesh order,
+    which `gathered` gathers.  `caches`: the caches split over the model
+    axis."""
 
     group: str
     rank: int
     size: int
     dims: Mapping[str, int]
-    bound: Mapping[int, int] = dataclasses.field(default_factory=dict)
+    bound: dict[int, int] = dataclasses.field(default_factory=dict)
     batch: tuple[MeshAxis, ...] = ()
     batch_dims: Mapping[str, tuple[int, tuple[int, ...]]] = dataclasses.field(
         default_factory=dict)
     batch_bound: Mapping[int, tuple[int, tuple[int, ...]]] = dataclasses.field(
         default_factory=dict)
+    stored: Mapping[str, tuple[tuple[int, int], ...]] = dataclasses.field(
+        default_factory=dict)
+    stored_bound: Mapping[int, tuple[tuple[int, int], ...]] = dataclasses.field(
+        default_factory=dict)
     caches: frozenset = frozenset()
 
     def bind(self, tensors: Mapping[str, torch.Tensor]) -> "TensorParallel":
         """This context for the model's `tensors`, by parameter name."""
-        return dataclasses.replace(self, bound={
-            id(t): self.dims[n] for n, t in tensors.items() if n in self.dims},
-            batch_bound={id(t): self.batch_dims[n] for n, t in tensors.items()
-                         if n in self.batch_dims})
+        def by_id(table):
+            return {id(t): table[n] for n, t in tensors.items() if n in table}
+
+        return dataclasses.replace(self, bound=by_id(self.dims),
+                                   batch_bound=by_id(self.batch_dims),
+                                   stored_bound=by_id(self.stored))
 
     def dim(self, w: torch.Tensor | None) -> int | None:
         """The dim of `w` that is this rank's shard, None when `w` is whole."""
@@ -228,3 +264,34 @@ class TensorParallel:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self.all_max(x.detach())
+
+
+@contextlib.contextmanager
+def gathered(tp: TensorParallel | None, module: nn.Module, skip: tuple[str, ...] = ()):
+    """Within the block, each weight of `module` (but those under its
+    submodules named in `skip`) that `tp` has stored split over batch
+    axes is its whole copy, gathered there (`_GatherStored`; its model
+    axis split, if any, is its shard's); the shard is put back after,
+    so nothing holds the copy but what the block's autograd saved."""
+    if tp is None or not tp.stored_bound:
+        yield
+        return
+    swapped = []
+    for name, owner in module.named_modules():
+        if name.split(".")[0] in skip:
+            continue
+        for leaf, w in owner._parameters.items():
+            on = None if w is None else tp.stored_bound.get(id(w))
+            if on is None:
+                continue
+            whole = _GatherStored.apply(w, on, tp)
+            if id(w) in tp.bound:
+                tp.bound[id(whole)] = tp.bound[id(w)]
+            owner._parameters[leaf] = whole
+            swapped.append((owner, leaf, w, whole))
+    try:
+        yield
+    finally:
+        for owner, leaf, w, whole in swapped:
+            owner._parameters[leaf] = w
+            tp.bound.pop(id(whole), None)

@@ -20,26 +20,31 @@ its moments stacked over the layers, [L, ...] split over ``data``, where
 is split over the plan's batch axes (``Shard(0)``, or ``Shard(1)`` of
 [accum, micro, ...]).
 
-The train and prefill steps compute each weight as
-`sharding.compute_placements` says: a weight stored split over a batch
-axis is gathered at use, as GSPMD gathers a weight stored sharded
-(FSDP; the experts' hidden dim over ``data``); a weight split over the
-model axis stays this rank's shard, and the model computes on it
-(`distributed.tensor_parallel`: Megatron column and row products,
-vocab-parallel embedding, logits and cross-entropy, expert-parallel
-MoE).  Each rank computes the loss of its own batch shard weighted by
-its share of the global batch's supervised tokens (labels of -1 are
-ignored, so a mean of per-rank means is not the global mean), and the
-MoE load-balance term, a mean over the global array's dispatch groups,
-by its share of the batch (where a rank's tokens are no whole number of
-groups, the MoE block gathers its input over the batch axes and routes
-the global groups, `models.moe`).  A gradient stays
-on its shard: it is summed over the batch axes into its moment's shard
-(a reduce-scatter); the global-norm clip adds each shard's square-sum
-once over the axes it is split on; the AdamW update runs on each
-moment's shard and the new weights go back to the plan's placements.
-The prefill returns its logits as a DTensor, batch over the batch axes
-and, where the vocab is split, vocab over the model axis.
+The train and prefill steps hand the model each weight as this rank's
+storage shard and compute it as `sharding.compute_placements` says: a
+weight stored split over a batch axis (FSDP; the experts' hidden dim
+over ``data``) is gathered at use, per layer, as GSPMD gathers a weight
+stored sharded: the layer that reads it all-gathers it over those axes
+and reduce-scatters its gradient over them
+(`distributed.tensor_parallel.gathered`; inside a remat layer the copy
+lives while the layer computes, and the recompute gathers it again); a
+weight split over the model axis stays this rank's shard, and the model
+computes on it (`distributed.tensor_parallel`: Megatron column and row
+products, vocab-parallel embedding, logits and cross-entropy,
+expert-parallel MoE).  Each rank computes the loss of its own batch
+shard weighted by its share of the global batch's supervised tokens
+(labels of -1 are ignored, so a mean of per-rank means is not the
+global mean), and the MoE load-balance term, a mean over the global
+array's dispatch groups, by its share of the batch (where a rank's
+tokens are no whole number of groups, the MoE block gathers its input
+over the batch axes and routes the global groups, `models.moe`).  A
+gradient stays on its shard: summed over the microbatches in f32 in its
+weight's storage-shard shape, then over the remaining batch axes into
+its moment's shard (a reduce-scatter); the global-norm clip adds each
+shard's square-sum once over the axes it is split on; the AdamW update
+runs on each moment's shard and the new weights go back to the plan's
+placements.  The prefill returns its logits as a DTensor, batch over
+the batch axes and, where the vocab is split, vocab over the model axis.
 
 The serve step decodes each rank's batch shard against its own slices
 of the caches (`DECODE_PLAN`: the KV caches' sequence over ``model``,
@@ -303,24 +308,26 @@ def _shifted(placements) -> tuple:
 class _Local:
     """The model to compute a sharded step with: a replica (its meta
     module made when the step is built) whose parameters are, at each
-    call, this rank's tensors under `compute_placements` (gathered over
-    the batch axes a weight is stored split on, but for the logical axes
-    in `keep`; this rank's shard where it is split over the model axis),
-    and the step's `TensorParallel` context bound to them."""
+    call, this rank's storage shards, and the step's `TensorParallel`
+    context bound to them.  A shard split over the model axis is
+    computed on as it is; one split over batch axes that
+    `compute_placements` computes whole (but for the logical axes in
+    `keep`) is the context's ``stored``: the layer that reads it gathers
+    it there (`tensor_parallel.gathered`), so no weight is gathered
+    before the step and none outlives its layer."""
 
     def __init__(self, model: Model, param_sh: dict, plan: ShardingPlan,
                  keep: frozenset = frozenset()):
         with torch.device("meta"):
             self.meta = model.init(device="meta")
-        axes = model.param_axes()
-        self.placements = {n: compute_placements(sh, plan, axes[n], keep)
-                           for n, sh in param_sh.items()}
-        self.tp = tensor_parallel(param_sh, plan, axes, keep)
+        self.tp = tensor_parallel(param_sh, plan, model.param_axes(), keep)
+        self.placements = {n: sh.placements for n, sh in param_sh.items()}
         self.slots = {n: n.rpartition(".") for n in param_sh}
 
     @torch.no_grad()
     def __call__(self, params: nn.Module, requires_grad: bool):
-        """(the module, its tensors by name, the bound context or None)."""
+        """(the module, its tensors by name, the bound context or None);
+        a parameter placed otherwise than `param_sh` says is moved there."""
         local = {}
         for n, p in params.named_parameters():
             t = p.redistribute(p.device_mesh, self.placements[n]).to_local()
@@ -356,9 +363,12 @@ def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, trian
         shards *= mesh.size(i) if isinstance(p, Shard) else 1
     stacked = {n for names in state_sh.stacks.values() for n in names}
 
-    def summed(name):  # a gradient's placements: partial over the batch axes
-        return tuple(q if isinstance(q, Partial) else p
-                     for p, q in zip(local_model.placements[name], partial))
+    def summed(name):
+        """A gradient's placements: its weight's, reduce-scattered over the
+        batch axes the weight is stored split on (`tensor_parallel.gathered`
+        did that), a partial sum over the other batch axes."""
+        return tuple(q if isinstance(q, Partial) and not isinstance(p, Shard) else p
+                     for p, q in zip(state_sh.params[name].placements, partial))
 
     def to_moments(tensors: dict, placements) -> dict:
         """Each tensor (this rank's under `placements(name)`) as its
@@ -379,6 +389,7 @@ def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, trian
         micro = ([{k: v[i] for k, v in local.items()} for i in range(accum_steps)]
                  if accum_steps > 1 else [local])
         loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
+        # f32 sums in each weight's storage-shard shape
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in weights.values()]
         for mb in micro:

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.tensor_parallel import gathered
 from .attention import (
     chunked_causal_attention,
     decode_attention,
@@ -52,9 +53,11 @@ from .layers import (
     vocab_parallel,
 )
 from .transformer import (
+    LAYER_STACKS,
     MLP,
     Attention,
     Norm,
+    _run_layer,
     attn_axes,
     check_device,
     flat_axes,
@@ -228,8 +231,9 @@ class EncDecLM(nn.Module):
 
     def _layer(self, layer, *args):
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
-        return layer(*args)
+            return checkpoint(_run_layer, layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return _run_layer(layer, *args)
 
     def encode(self, frames: torch.Tensor, tp=None) -> torch.Tensor:
         """frames [B, T_enc, D] (stub embeddings) -> encoder states."""
@@ -243,16 +247,19 @@ class EncDecLM(nn.Module):
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
                 triangular: bool = False, tp=None) -> torch.Tensor:
         """Teacher-forced decoder logits [B, S, Vpad] (f32; this rank's
-        vocab columns under a vocab-split `TensorParallel` `tp`)."""
+        vocab columns under a vocab-split `TensorParallel` `tp`).  A
+        weight `tp` stores split over batch axes is gathered where it is
+        used: a layer's in that layer, the others for the pass."""
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
         enc_out = self.encode(frames, tp)
-        x = embed_tokens(self.embed, tokens, cd, tp)
-        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device).to(cd)[None]
-        for layer in self.dec_layers:
-            x = self._layer(layer, x, enc_out, triangular, tp)
-        x = self.dec_final_norm(x)
-        return lm_logits(x, self.embed, None, cfg.vocab_size, tp)
+        with gathered(tp, self, skip=LAYER_STACKS):
+            x = embed_tokens(self.embed, tokens, cd, tp)
+            x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device).to(cd)[None]
+            for layer in self.dec_layers:
+                x = self._layer(layer, x, enc_out, triangular, tp)
+            x = self.dec_final_norm(x)
+            return lm_logits(x, self.embed, None, cfg.vocab_size, tp)
 
 
 def encdec_loss(model: EncDecLM, frames, tokens, labels, *, triangular=False, tp=None):
@@ -288,9 +295,11 @@ def decode_step_encdec(model: EncDecLM, caches: dict, tokens: torch.Tensor,
     (`transformer.decode_step_lm`)."""
     cfg = model.cfg
     cd = torch_dtype(cfg.compute_dtype)
-    x = embed_tokens(model.embed, tokens, cd, tp)
-    x = x + sinusoidal_positions(1, cfg.d_model, x.device).to(cd)[None]
-    for i, layer in enumerate(model.dec_layers):
-        x = layer.decode(x, {name: c[i] for name, c in caches.items()}, index, tp)
-    x = model.dec_final_norm(x)
-    return lm_logits(x, model.embed, None, cfg.vocab_size, tp), caches
+    with gathered(tp, model, skip=LAYER_STACKS):
+        x = embed_tokens(model.embed, tokens, cd, tp)
+        x = x + sinusoidal_positions(1, cfg.d_model, x.device).to(cd)[None]
+        for i, layer in enumerate(model.dec_layers):
+            with gathered(tp, layer):
+                x = layer.decode(x, {name: c[i] for name, c in caches.items()}, index, tp)
+        x = model.dec_final_norm(x)
+        return lm_logits(x, model.embed, None, cfg.vocab_size, tp), caches

@@ -157,21 +157,24 @@ def channel_heads(lo: int, hi: int, head_dim: int) -> tuple[int, int]:
     return lo // head_dim, -(-hi // head_dim)
 
 
-def _ssd_channels(p, xc, b_, c_, dt, z, lo: int, hi: int, cfg, take=lambda w: w):
-    """Channels [lo, hi) of the SSD, gated: the scan on the heads they
-    touch, at whole head dim, then those channels times silu(z), f32
-    [B, S, hi - lo], before the norm.  `take` routes a whole parameter
-    (`A_log`, `D`, `dt_bias`) before its heads are read (`tp.copy` on a
-    rank of the model axis)."""
-    b, s, _ = xc.shape
+def _ssd_channels(p, xs, b_, c_, dt, zs, lo: int, hi: int, cfg, take=lambda w: w):
+    """Channels [lo, hi) of the SSD, gated, from those channels of the
+    conv's x and of z (`xs`, `zs` [B, S, hi - lo]), the shared B and C,
+    and the dt of the heads they touch (`dt` [B, S, h1 - h0], before the
+    softplus): the scan on those heads at whole head dim, their other
+    channels zero (a channel's output reads its own input channel only),
+    then the channels times silu(z), f32 [B, S, hi - lo], before the
+    norm.  `take` routes a whole parameter (`A_log`, `D`, `dt_bias`)
+    before its heads are read (`tp.copy` on a rank of the model axis)."""
+    b, s, _ = xs.shape
     hp = cfg.ssm_head_dim
     h0, h1 = channel_heads(lo, hi, hp)
     a = -torch.exp(take(p.A_log)[h0:h1])
-    dt = _softplus(dt[..., h0:h1].float() + take(p.dt_bias)[h0:h1])
-    xh = xc[..., h0 * hp:h1 * hp].reshape(b, s, h1 - h0, hp)
+    dt = _softplus(dt.float() + take(p.dt_bias)[h0:h1])
+    xh = F.pad(xs, (lo - h0 * hp, h1 * hp - hi)).reshape(b, s, h1 - h0, hp)
     y = _ssd(xh, dt, a, take(p.D)[h0:h1], b_, c_, min(cfg.ssm_chunk, s))
     y = y.reshape(b, s, -1)[..., lo - h0 * hp:hi - h0 * hp]
-    return y * F.silu(z[..., lo:hi].float())
+    return y * F.silu(zs.float())
 
 
 def _norm_channels(yf, sumsq, d_inner: int, scale):
@@ -197,6 +200,36 @@ def _projections(p, x, cfg, tp):
     return z, conv_out, dt
 
 
+def _split_projections(p, x, cfg, tp, lo: int, hi: int):
+    """(z and the conv's x on channels [lo, hi), the conv's B and C
+    whole, the dt of the heads those channels touch): what this rank of
+    the split scan reads (`apply_ssm`), computed on it and nothing more.
+    Its columns of ``in_proj`` (z, x, dt) are column products on copies
+    of x and of the whole weight (gathered first where it is split); the
+    B and C columns are split over the ranks and gathered
+    (`layers.gathered_columns`, its remainder whole), then copied, as
+    every rank reads them whole for its own channels.  The depthwise
+    conv runs on the rank's x channels and on B and C, its weights whole
+    (gathered where split) through `copy`, so each gradient is the
+    ranks' shares summed."""
+    d_inner, _, hp, n, _ = _dims(cfg)
+    h0, h1 = channel_heads(lo, hi, hp)
+    xc = tp.copy(x)
+    w = p.in_proj if tp.dim(p.in_proj) is None else tp.gather(p.in_proj, -1)
+    wc = tp.copy(w)
+    dt0 = 2 * d_inner + 2 * n
+    z = xc @ wc[:, lo:hi]
+    xs = xc @ wc[:, d_inner + lo:d_inner + hi]
+    dt = xc @ wc[:, dt0 + h0:dt0 + h1]
+    bc = tp.copy(gathered_columns(tp, x, w[:, 2 * d_inner:dt0], xc=xc))
+    cw, cb = (tp.copy(t if tp.dim(t) is None else tp.gather(t, -1))
+              for t in (p.conv_w, p.conv_b))
+    xs = F.silu(_causal_conv(xs, cw[:, lo:hi], cb[lo:hi]).float())
+    b_, c_ = torch.split(F.silu(_causal_conv(bc, cw[:, d_inner:], cb[d_inner:]).float()),
+                         [n, n], dim=-1)
+    return z, xs, b_, c_, dt
+
+
 def _splits_scan(p: SSM, cfg, tp) -> bool:
     """Whether `apply_ssm` splits the scan over `tp`'s model axis: more
     than one rank, ``out_proj`` split over it, d_inner divided by it."""
@@ -207,36 +240,35 @@ def _splits_scan(p: SSM, cfg, tp) -> bool:
 def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """Full-sequence SSD. x: [B, S, D] -> [B, S, D].
 
-    With `tp`, ``in_proj`` is a column product gathered whole before the
-    z/x/B/C/dt split (whose boundaries need not fall on the shard's;
-    `layers.gathered_columns`), the depthwise conv runs on this rank's
-    channels, gathered, and ``out_proj`` is a row product, all-reduced.
     Where `_splits_scan`, the scan runs on this rank's slice of d_inner,
-    the channels of its ``out_proj`` rows, on the heads they touch (B, C
-    and those heads' dt whole); the gated norm's sum of squares is
-    all-reduced.  Every tensor each rank then uses for its own channels
-    (z, dt, the conv's output, and ``A_log``, ``D``, ``dt_bias``) goes
-    through `copy`, so their gradients are the ranks' shares summed.
-    Otherwise the scan runs whole on every rank, and the gated norm is
-    cut to this rank's ``out_proj`` rows where those are split.
+    the channels of its ``out_proj`` rows, on the heads they touch, from
+    those channels of z and x, B and C whole and those heads' dt
+    (`_split_projections`: no whole projection is gathered); the gated
+    norm's sum of squares is all-reduced, and ``A_log``, ``D``,
+    ``dt_bias`` go through `copy`, so their gradients are the ranks'
+    shares summed.  Otherwise, with `tp`, ``in_proj`` is a column product
+    gathered whole before the z/x/B/C/dt split (whose boundaries need not
+    fall on the shard's; `layers.gathered_columns`), the depthwise conv
+    runs on this rank's channels, gathered, the scan runs whole on every
+    rank, the gated norm is cut to this rank's ``out_proj`` rows where
+    those are split, and ``out_proj`` is a row product, all-reduced.
     """
     b, s, d = x.shape
     d_inner, h, hp, n, conv_dim = _dims(cfg)
     q = min(cfg.ssm_chunk, s)
     assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
-    z, conv_out, dt = _projections(p, x, cfg, tp)
     if _splits_scan(p, cfg, tp):
-        z, conv_out, dt = tp.copy(z), tp.copy(conv_out), tp.copy(dt)
-        xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
         lo = tp.start(d_inner // tp.size)
         hi = lo + d_inner // tp.size
-        yf = _ssd_channels(p, xc, b_, c_, dt, z, lo, hi, cfg, take=tp.copy)
+        z, xs, b_, c_, dt = _split_projections(p, x, cfg, tp, lo, hi)
+        yf = _ssd_channels(p, xs, b_, c_, dt, z, lo, hi, cfg, take=tp.copy)
         sumsq = tp.copy(tp.reduce((yf * yf).sum(-1, keepdim=True)))
         scale = p.gate_norm_scale
         if tp.dim(scale) is None:
             scale = tp.copy(scale)[lo:hi]
         y = _norm_channels(yf, sumsq, d_inner, scale)
         return tp.reduce(y.to(x.dtype) @ p.out_proj)
+    z, conv_out, dt = _projections(p, x, cfg, tp)
     xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
     a = -torch.exp(p.A_log)                                         # [H]
     dt = _softplus(dt.float() + p.dt_bias)                          # [B,S,H]
@@ -256,9 +288,12 @@ def split_ssm(p: SSM, x: torch.Tensor, cfg, parts: int) -> torch.Tensor:
     d_inner, _, _, n, _ = _dims(cfg)
     z, conv_out, dt = _projections(p, x, cfg, None)
     xc, b_, c_ = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    width = d_inner // parts
-    yfs = [_ssd_channels(p, xc, b_, c_, dt, z, r * width, (r + 1) * width, cfg)
-           for r in range(parts)]
+    width, hp = d_inner // parts, cfg.ssm_head_dim
+    yfs = []
+    for lo in range(0, d_inner, width):
+        h0, h1 = channel_heads(lo, lo + width, hp)
+        yfs.append(_ssd_channels(p, xc[..., lo:lo + width], b_, c_, dt[..., h0:h1],
+                                 z[..., lo:lo + width], lo, lo + width, cfg))
     sumsq = sum((yf * yf).sum(-1, keepdim=True) for yf in yfs)
     scale = p.gate_norm_scale
     y = torch.cat([_norm_channels(yf, sumsq, d_inner, scale[r * width:(r + 1) * width])
@@ -288,7 +323,9 @@ def decode_ssm(p: SSM, cache: dict, x: torch.Tensor, cfg, tp=None):
     gathered whole (`layers.gathered_columns`), the depthwise conv on
     this rank's channels where its weights are split, gathered, the
     recurrence whole on every rank, and ``out_proj`` a row product on
-    this rank's slice of the gated norm, all-reduced."""
+    this rank's slice of the gated norm, all-reduced.  The state and the
+    conv tail hold every channel on every rank of the model axis, so
+    each rank's step reads them whole, unlike the split scan's."""
     b = x.shape[0]
     d_inner, h, hp, n, conv_dim = _dims(cfg)
     split = lambda w: tp is not None and tp.dim(w) is not None

@@ -47,6 +47,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.tensor_parallel import gathered
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .attention import (
@@ -308,6 +309,13 @@ class Block(nn.Module):
         return self._feed_forward(x_tok, tp)[0]
 
 
+def _run_layer(layer, *args):
+    """One layer, its weights stored split over batch axes gathered for
+    it alone (`tensor_parallel.gathered`; ``args[-1]`` is the context)."""
+    with gathered(args[-1], layer):
+        return layer(*args)
+
+
 def _product(x, w, b):
     y = x @ w
     return y if b is None else y + b
@@ -546,25 +554,28 @@ class TransformerLM(nn.Module):
         `tp` is this rank's `TensorParallel` context on a mesh that splits
         weights over its model axis (None: the plain model); the layers'
         collectives sit inside the remat checkpoint, so its recompute
-        issues them again, in the same order on every rank.
+        issues them again, in the same order on every rank.  A weight
+        `tp` stores split over batch axes is gathered where it is used:
+        a layer's in that layer (`_run_layer`), the others for the pass.
         """
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
-        x = embed_tokens(self.embed, tokens, cd, tp)
-        if frontend_embeds is not None:
-            x = torch.cat([frontend_embeds.to(cd), x], dim=1)
-        positions = torch.arange(x.shape[1], device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
-            if cfg.remat:
-                x, a = checkpoint(layer, x, positions, triangular, tp,
-                                  use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, a = layer(x, positions, triangular, tp)
-            if a is not None:
-                aux = aux + a
-        x = self.final_norm(x)
-        return lm_logits(x, self.embed, self.head, cfg.vocab_size, tp), aux
+        with gathered(tp, self, skip=LAYER_STACKS):
+            x = embed_tokens(self.embed, tokens, cd, tp)
+            if frontend_embeds is not None:
+                x = torch.cat([frontend_embeds.to(cd), x], dim=1)
+            positions = torch.arange(x.shape[1], device=x.device)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for layer in self.layers:
+                if cfg.remat:
+                    x, a = checkpoint(_run_layer, layer, x, positions, triangular, tp,
+                                      use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x, a = _run_layer(layer, x, positions, triangular, tp)
+                if a is not None:
+                    aux = aux + a
+            x = self.final_norm(x)
+            return lm_logits(x, self.embed, self.head, cfg.vocab_size, tp), aux
 
     def forward(self, tokens: torch.Tensor, *, frontend_embeds=None,
                 triangular: bool = False, tp=None) -> torch.Tensor:
@@ -657,14 +668,16 @@ def decode_step_lm(
     this rank's batch rows, the weights and caches its shards and slices,
     and the logits its vocab columns where the vocab is split."""
     cfg = model.cfg
-    x = embed_tokens(model.embed, tokens, torch_dtype(cfg.compute_dtype), tp)
-    cache_len = cache_len_for(cfg, seq_len)
-    pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
-    for i, layer in enumerate(model.layers):
-        layer_cache = {name: c[i] for name, c in caches.items()}
-        x = layer.decode(x, layer_cache, pos, index, cache_len, tp)
-    x = model.final_norm(x)
-    return lm_logits(x, model.embed, model.head, cfg.vocab_size, tp), caches
+    with gathered(tp, model, skip=LAYER_STACKS):
+        x = embed_tokens(model.embed, tokens, torch_dtype(cfg.compute_dtype), tp)
+        cache_len = cache_len_for(cfg, seq_len)
+        pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+        for i, layer in enumerate(model.layers):
+            layer_cache = {name: c[i] for name, c in caches.items()}
+            with gathered(tp, layer):
+                x = layer.decode(x, layer_cache, pos, index, cache_len, tp)
+        x = model.final_norm(x)
+        return lm_logits(x, model.embed, model.head, cfg.vocab_size, tp), caches
 
 
 #: the per-layer stacks of the reference's trees: ``layers`` of the

@@ -334,13 +334,17 @@ def test_split_scan_and_query_split_per_device_flops_are_near_the_one_device_ove
     """Full widths cut to 2 layers, a 4,096 prefill, one row a rank,
     BASELINE_PLAN: mamba2-130m on (16, 16) (24 heads do not divide 16:
     each rank scans its 96 channels of d_inner on the 2 heads they touch,
-    B and C whole, and computes a 16th of the first 3,344 ``in_proj``
-    columns and all of the last 8) and whisper-base on (2, 16, 16) (8
+    B and C whole, and computes the ``in_proj`` columns of its z and x
+    channels and its heads' dt, and a 16th of B and C's) and
+    whisper-base on (2, 16, 16) (8
     heads and 1 x 8 KV groups do not divide 16: each rank attends with
     its 256 of the 4,096 decoder queries and its 64 of the 1,024 encoder
     frames, k and v whole) do at most 2x the one-device step's work at
-    one row, over 16, a device: 1.0354x and exactly 1x.  With the whole
-    scan and the whole attention, 3.1307x and 4.5294x."""
+    one row, over 16, a device: 1.0318x and exactly 1x.  With the whole
+    scan and the whole attention, 3.1307x and 4.5294x; with the scan
+    split and the projections computed whole and gathered (a 16th of
+    the first 3,344 ``in_proj`` columns and all of the last 8 a rank),
+    1.0354x."""
     cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               n_enc_layers=min(2, get_config(arch).n_enc_layers))
     with dryrun.fake_group():
@@ -350,7 +354,102 @@ def test_split_scan_and_query_split_per_device_flops_are_near_the_one_device_ove
     one = _one_device(cfg, ShapeConfig("p", 4096, 1, "prefill"), sharding.BASELINE_PLAN, 1)
     ratio = got["costs"].flops * 16 / one["costs"].flops
     assert ratio <= 2
-    assert ratio == pytest.approx(1.0354 if arch == "mamba2-130m" else 1.0, abs=1e-4)
+    assert ratio == pytest.approx(1.0318 if arch == "mamba2-130m" else 1.0, abs=1e-4)
+
+
+#: mamba2-130m at full widths cut to 2 layers, a 4,096 prefill at one
+#: row a rank on (16, 16) under BASELINE_PLAN, when each layer gathered
+#: its whole ``in_proj`` and conv outputs over `model` (the port's counts
+#: before the split scan read only its own channels)
+WHOLE_SSM_PROJECTIONS = {"all_gather": 113_508_352, "flops": 25_329_401_856}
+
+
+def test_split_scan_gathers_no_whole_projection():
+    """Each rank of the split scan computes the ``in_proj`` columns of its
+    own z and x channels and its heads' dt, and a 16th of B and C, then
+    gathers B and C alone (and the conv's weights, 4 x 1,792): its
+    all-gather bytes fall below the whole projections' at no more
+    FLOPs."""
+    cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=2)
+    with dryrun.fake_group():
+        mesh = port_mesh.make_production_mesh(device_type="cpu")
+        got = dryrun.measure_cell(cfg, ShapeConfig("p", 4096, 16, "prefill"), mesh,
+                                  sharding.BASELINE_PLAN, "cpu")["costs"]
+    assert got.coll_by_kind["all-gather"] < WHOLE_SSM_PROJECTIONS["all_gather"] / 10
+    assert got.flops <= WHOLE_SSM_PROJECTIONS["flops"]
+
+
+#: one train_4k cell of phi3.5-moe at full widths, `n_layers` layers, on
+#: the fake (16, 16) or (2, 16, 16) mesh under BASELINE_PLAN, four
+#: microbatches: its temp bytes
+_MOE_TRAIN_CELL = r"""
+import dataclasses, json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as port_mesh
+
+layers, multi = int(sys.argv[1]), sys.argv[2] == "multi"
+cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=layers)
+with dryrun.fake_group():
+    mesh = port_mesh.make_production_mesh(multi, device_type="cpu")
+    got = dryrun.measure_cell(cfg, SHAPES["train_4k"], mesh, sharding.BASELINE_PLAN, "cpu",
+                              accum=dryrun.TRAIN_ACCUM)
+print(json.dumps({"temp": got["memory"]["temp_bytes"]}))
+"""
+
+
+@pytest.fixture(scope="module")
+def moe_train_temp():
+    """{(layers, mesh): temp_bytes} of `_MOE_TRAIN_CELL` at 2 and 4 layers
+    on (16, 16) and 2 layers on (2, 16, 16), the three at once."""
+    cells = [(2, "single"), (4, "single"), (2, "multi")]
+    procs = [subprocess.Popen([sys.executable, "-c", _MOE_TRAIN_CELL, str(n), mesh],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=_env(), cwd=ROOT) for n, mesh in cells]
+    out = {}
+    try:
+        for cell, p in zip(cells, procs):
+            stdout, err = p.communicate(timeout=600)
+            assert p.returncode == 0, err[-3000:]
+            out[cell] = json.loads(stdout.splitlines()[-1])["temp"]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def test_moe_train_temp_grows_by_less_than_a_gathered_expert_layer(moe_train_temp):
+    """Each layer gathers its experts' hidden dim over `data` where it
+    reads them and reduce-scatters their gradient, and the gradient sums
+    are f32 in the shards' shapes: per added layer, temp grows by what
+    the step must keep for it (remat's saved input, a microbatch of 4
+    rows x 4,096 x d_model in bf16; the f32 sums of the layer's local
+    shards) and by less than one layer's gathered experts a rank
+    (3 x d_model x d_ff x 1 expert x 2 B) beyond that.  Gathering every
+    expert before the step, the f32 sums in the gathered shape, grew by
+    481 MB a layer beyond it (675,856,384 bytes in all)."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    model = build_model(dataclasses.replace(cfg, n_layers=1))
+    with dryrun.fake_group():
+        mesh = port_mesh.make_production_mesh(device_type="cpu")
+        plan = dryrun._plan_for(cfg, dryrun.SHAPES["train_4k"], mesh, sharding.BASELINE_PLAN)
+        specs = steps.param_specs(model)
+        shards = sharding.tree_shardings(mesh, model.param_axes(), plan, specs)
+        layer = sum(_local_bytes(shards[n], s, torch.float32)
+                    for n, s in specs.items() if n.startswith("layers.0."))
+    saved = 4 * 4096 * cfg.d_model * 2
+    experts = 3 * cfg.d_model * cfg.d_ff * (cfg.n_experts // 16) * 2
+    growth = (moe_train_temp[4, "single"] - moe_train_temp[2, "single"]) / 2
+    assert 0 < growth - saved - layer < experts
+
+
+def test_moe_train_temp_falls_with_a_second_pod(moe_train_temp):
+    """The gathered experts no longer fill the temp: a second pod halves
+    each rank's rows, and the 2-layer cell's temp falls with them."""
+    assert moe_train_temp[2, "multi"] < moe_train_temp[2, "single"]
 
 
 @pytest.mark.parametrize("plan,accum", [("BASELINE_PLAN", 4), ("DP_ALL_PLAN", 1)])

@@ -823,7 +823,10 @@ TP_REF_CASES = [("paper-gpt-125m", 1, 2), ("paper-gpt-125m", 2, 2),
 #: against the port's one-device step: name -> (arch reduced, config
 #: changes, plan rules changed from BASELINE_PLAN's or another plan's
 #: name, (data, model)[, `_tp_case` options]).  Under DP_FSDP_PLAN `model`
-#: carries the batch, so every weight is stored split and gathered at use.
+#: carries the batch, so every weight is stored split and gathered at use,
+#: in the layer that reads it, its gradient reduce-scattered; the MoE
+#: family's experts on (2, 2) are stored split on two dims over two axes
+#: (experts over `model`, their hidden dim over `data`).
 #: Whole KV projections (the dry run's GQA rule) make each rank slice the
 #: KV heads its query heads read; 3 heads split a head across the 2
 #: ranks, so the projections are gathered whole (from the shard of ``wq``,
@@ -853,6 +856,8 @@ TP_ONE_CASES = {
     "ssm": ("mamba2-130m", {}, {}, (1, 2)),
     "encdec": ("whisper-base", {}, {}, (1, 2)),
     "fsdp": ("paper-gpt-125m", {}, "DP_FSDP_PLAN", (1, 2)),
+    "fsdp-moe": ("phi3.5-moe-42b-a6.6b", {}, "DP_FSDP_PLAN", (1, 2)),
+    "fsdp-moe-2x2": ("phi3.5-moe-42b-a6.6b", {}, "DP_FSDP_PLAN", (2, 2)),
     "ssm-split-scan-1x2": ("mamba2-130m", _SPLIT_SCAN, {}, (1, 2)),
     "ssm-split-scan-1x4": ("mamba2-130m", _SPLIT_SCAN, {}, (1, 4)),
     "hybrid-split-1x4": ("hymba-1.5b", {}, {}, (1, 4)),
@@ -1002,7 +1007,7 @@ def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
     got, one = tp_runs["port"][case], tp_runs["ones"][case]
     assert ("layers.mlp.bi" in got["stacks"]) == (case == "dense-stacked-moments")
     # the logits' vocab over `model` where the plan computes on its shards
-    assert (got["logits_placements"][1] == "Shard(dim=2)") == (case != "fsdp")
+    assert (got["logits_placements"][1] == "Shard(dim=2)") == (not case.startswith("fsdp"))
     assert got["loss"] == pytest.approx(one["loss"], rel=1e-5)
     assert got["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-5)
     _close_params(got["params"], one["params"], tp_runs["lr"])
@@ -1014,6 +1019,72 @@ def test_tensor_parallel_step_equals_the_one_device_step(tp_runs, case):
     assert spread and not {n: d for n, d in spread.items() if d != 0.0}
     if "ssm" in case or "hybrid" in case:
         assert {f"layers.0.ssm.{n}" for n in ("A_log", "D", "dt_bias")} <= set(spread)
+
+
+#: a weight stored split over `data` on two Gloo ranks, gathered for a
+#: block by `tensor_parallel.gathered`: what the block reads, the full
+#: tensor, and the gradient of a loss each rank weights with its own
+#: coefficients, against the shard of the whole gradient
+_GATHER_RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.distributed import sharding
+from repro_torch.distributed.tensor_parallel import gathered
+from repro_torch.launch.mesh import make_local_mesh
+
+rank, init, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+mesh = make_local_mesh(2, 1, device="cpu")
+gen = torch.Generator().manual_seed(0)
+out = {}
+for dim in (0, 1):
+    whole = torch.randn(6, 4, generator=gen)
+    coef = torch.randn(2, 6, 4, generator=gen)  # rank r's loss: sum(w * coef[r])
+    sh = sharding.Sharding(mesh, ("data", None) if dim == 0 else (None, "data"))
+    w = distribute_tensor(whole, mesh, sh.placements)
+    shard = w.to_local().detach().requires_grad_(True)
+    tp = sharding.tensor_parallel({"w": sh}, sharding.BASELINE_PLAN).bind({"w": shard})
+    module = nn.Module()
+    module.register_parameter("w", nn.Parameter(torch.empty(0)))
+    module._parameters["w"] = shard
+    with gathered(tp, module):
+        seen = module.w
+        loss = (seen * coef[rank]).sum()
+    grad, = torch.autograd.grad(loss, shard)
+    out[dim] = dict(seen=seen.detach(), full=w.full_tensor(), whole=whole,
+                    grad=grad, want=coef.sum(0).chunk(2, dim)[rank],
+                    stored=tp.stored, restored=module.w is shard)
+torch.save(out, out_path + f".{rank}")
+dist.destroy_process_group()
+"""
+
+
+def test_gathered_weight_is_the_full_tensor_and_its_gradient_is_reduce_scattered(tmp_path):
+    """`tensor_parallel.gathered` on two Gloo ranks, a [6, 4] weight
+    stored split over `data` on dim 0 and on dim 1: inside the block the
+    module reads the whole weight, equal to the DTensor's `full_tensor()`
+    bit for bit; after it, the shard again; the gradient of the ranks'
+    different losses is the sum of both ranks' gradients, this rank's
+    shard of it, within 1e-6 (a reduce-scatter)."""
+    init = f"file://{tmp_path / 'gloo_gather'}"
+    out = tmp_path / "gather.pt"
+    procs = [subprocess.Popen([sys.executable, "-c", _GATHER_RANK, str(r), init, str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=_env()) for r in range(2)]
+    _wait(procs, 120)
+    for rank in range(2):
+        got = torch.load(f"{out}.{rank}", weights_only=False)
+        for dim, case in got.items():
+            assert case["stored"] == {"w": ((dim, 0),)}
+            assert torch.equal(case["seen"], case["full"])
+            assert torch.equal(case["seen"], case["whole"])
+            assert case["restored"]
+            assert case["grad"].shape == case["want"].shape
+            torch.testing.assert_close(case["grad"], case["want"], rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
