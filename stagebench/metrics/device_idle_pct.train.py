@@ -1,0 +1,8 @@
+"""The device: 1 - (the union of its activity intervals in the traced
+window) / the window's wall, in %."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
