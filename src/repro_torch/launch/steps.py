@@ -80,6 +80,7 @@ from ..distributed.sharding import (
 from ..models.model_zoo import Model
 from ..models.transformer import LAYER_STACKS, decay_mask
 from ..optim.adamw import AdamWConfig, OptState, apply_updates, init_opt
+from ..telemetry import regions
 
 __all__ = [
     "StateShardings",
@@ -413,14 +414,15 @@ def _sharded_train_step(model, mesh, plan, opt_cfg, state_sh, accum_steps, trian
                 {n: g / accum_steps for n, g in zip(names, grads)}, summed)
             shard = to_moments({n: p.to_local() for n, p in params.items()},
                                lambda n: params[n].placements)
-        gnorm = _grad_norm(grad_shard, state_sh.moments, mesh)
-        local_opt = OptState({n: m.to_local() for n, m in state.opt.mu.items()},
-                             {n: v.to_local() for n, v in state.opt.nu.items()},
-                             state.opt.count)
-        decay = decay_mask(state.params)
-        decay.update({key: decay[layers[0]] for key, layers in state_sh.stacks.items()})
-        _, opt, om = apply_updates(opt_cfg, shard, grad_shard, local_opt,
-                                   decay, grad_norm=gnorm)
+        with regions.region("optimizer"):  # the clip norm and AdamW
+            gnorm = _grad_norm(grad_shard, state_sh.moments, mesh)
+            local_opt = OptState({n: m.to_local() for n, m in state.opt.mu.items()},
+                                 {n: v.to_local() for n, v in state.opt.nu.items()},
+                                 state.opt.count)
+            decay = decay_mask(state.params)
+            decay.update({key: decay[layers[0]] for key, layers in state_sh.stacks.items()})
+            _, opt, om = apply_updates(opt_cfg, shard, grad_shard, local_opt,
+                                       decay, grad_norm=gnorm)
         with torch.no_grad():  # the new weights back to the plan's placements
             for n, t in shard.items():
                 new = DTensor.from_local(t, mesh, state_sh.moments[n].placements)
@@ -492,10 +494,11 @@ def build_train_step(
             grads = [g / accum_steps for g in grads]
         else:
             loss, grads = value_and_grad(batch)
-        _, opt, om = apply_updates(
-            opt_cfg, params, dict(zip(params, grads)), state.opt,
-            decay_mask(state.params),
-        )
+        with regions.region("optimizer"):
+            _, opt, om = apply_updates(
+                opt_cfg, params, dict(zip(params, grads)), state.opt,
+                decay_mask(state.params),
+            )
         metrics = {"loss": loss, **om}
         return TrainState(params=state.params, opt=opt, step=state.step + 1), metrics
 

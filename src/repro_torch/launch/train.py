@@ -9,7 +9,11 @@ Fused-step taxonomy: data.next_wait / step.dispatch / step.device_wait /
 callbacks / ckpt / residual.  The monitor gathers windows, labels them,
 emits evidence packets, and the policy can arm a ten-step
 `torch.profiler` trace written to ``--profile-dir`` as a Chrome trace
-(the paper's router-to-profiler loop).  Checkpoint/restart: ``--resume
+(the paper's router-to-profiler loop), and beside it the traced steps'
+device-timed regions (`telemetry.regions`) as ``regions_step<N>.json``:
+each interval's region, phase, host start on the trace's clock
+(``time.time_ns``) and device ms, so an idle gap on the trace can be put
+down to the region the host was enqueuing.  Checkpoint/restart: ``--resume
 auto`` restarts from the newest valid manifest, including the
 data-pipeline cursor.
 
@@ -130,6 +134,7 @@ def run(args) -> dict:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=activities)
             prof.start()
+            monitor.regions.log = []  # the traced steps' regions, as they fold
             profile_state.update(prof=prof, active_until=step_counter["i"] + 10)
 
     def stop_profile() -> str:
@@ -137,6 +142,11 @@ def run(args) -> dict:
         prof.stop()
         path = os.path.join(args.profile_dir, f"trace_step{step_counter['i']}.json")
         prof.export_chrome_trace(path)
+        monitor.regions.settle()
+        with open(os.path.join(args.profile_dir, f"regions_step{step_counter['i']}.json"),
+                  "w") as f:
+            json.dump({"clock": "time.time_ns", "steps": monitor.regions.log}, f)
+        monitor.regions.log = None
         profile_state.update(prof=None, active_until=-1)
         return path
 

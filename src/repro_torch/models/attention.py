@@ -45,6 +45,8 @@ from typing import Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..telemetry import regions
+
 __all__ = [
     "NEG",
     "chunked_causal_attention",
@@ -156,7 +158,12 @@ def chunked_causal_attention(
         return m
 
     def q_block(iq, qb):
-        # qb: [B, q_chunk, KV, G, D]
+        # qb: [B, q_chunk, KV, G, D]; its remat's re-run inside the
+        # attention's backward is timed as the attention's recompute
+        with regions.recomputing("attention"):
+            return _q_block(iq, qb)
+
+    def _q_block(iq, qb):
         state = (
             torch.full((b, n_kv, g, q_chunk), NEG, dtype=torch.float32, device=q.device),
             torch.zeros((b, n_kv, g, q_chunk), dtype=torch.float32, device=q.device),

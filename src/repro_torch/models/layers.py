@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..telemetry import regions
+
 __all__ = [
     "apply_mlp",
     "apply_norm",
@@ -227,12 +229,15 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, compute_dtype,
                  tp=None) -> torch.Tensor:
     """The tokens' rows of `emb`.  With `tp` and `emb` split over the
     vocab, each rank looks up the ids of its rows, zeros the others, and
-    the ranks' rows are all-reduced (a sum of one row and exact zeros)."""
+    the ranks' rows are all-reduced (a sum of one row and exact zeros).
+    A timed region (`telemetry.regions`), entered on the weight as the
+    lookup reads it: `tp` knows `emb` itself, not the marker's view."""
     if tp is None or tp.dim(emb) is None:
-        return F.embedding(tokens, emb.to(compute_dtype))
+        return regions.exit("embed", F.embedding(
+            tokens, regions.enter("embed", emb.to(compute_dtype))))
     local, inside = _local_ids(tokens, emb.shape[0], tp)
-    x = F.embedding(local, emb.to(compute_dtype))
-    return tp.reduce(torch.where(inside[..., None], x, 0))
+    x = F.embedding(local, regions.enter("embed", emb.to(compute_dtype)))
+    return regions.exit("embed", tp.reduce(torch.where(inside[..., None], x, 0)))
 
 
 def lm_logits(

@@ -45,9 +45,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..distributed.tensor_parallel import gathered
+from ..telemetry import regions
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .attention import (
@@ -268,28 +268,43 @@ class Block(nn.Module):
         return 0.5 * (self.attn_out_norm(attn_out) + self.ssm_out_norm(ssm_out))
 
     def _feed_forward(self, x, tp=None):
-        """The expert block or the MLP: (x, aux), aux None without experts."""
+        """The expert block or the MLP: (x, aux), aux None without experts.
+        Each is a timed region (`telemetry.regions`), entered on x before
+        its norm and its residual read it."""
         aux = None
         if _has_moe(self.cfg):
+            x = regions.enter("moe", x)
             y, aux = self.moe(self.moe_norm(x), tp)
-            x = x + y
+            x = x + regions.exit("moe", y)
         if _has_mlp(self.cfg):
-            x = x + apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act, tp)
+            x = regions.enter("mlp", x)
+            y = apply_mlp(self.mlp, self.mlp_norm(x), self.cfg.act, tp)
+            x = x + regions.exit("mlp", y)
         return x, aux
 
     def forward(self, x, positions, triangular: bool = False, tp=None):
         """One layer. Returns (x, aux or None).  `tp`: this rank's
-        `TensorParallel` context, None for the plain layer."""
+        `TensorParallel` context, None for the plain layer.
+
+        Each mixer is a timed region (`telemetry.regions`), entered on x
+        before anything reads it; the hybrid's x also feeds the SSD path,
+        whose region opens after its norm."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            attn_out = self._attention(x, positions, triangular, tp)
-            ssm_out = ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
+            x = regions.enter("attention", x)
+            attn_out = regions.exit("attention", self._attention(x, positions, triangular, tp))
+            h = regions.enter("ssm", self.ssm_norm(x))
+            ssm_out = regions.exit("ssm", ssm_lib.apply_ssm(self.ssm, h, cfg, tp))
             x = x + self._mix(attn_out, ssm_out)
         else:
             if _has_attention(cfg):
-                x = x + self._attention(x, positions, triangular, tp)
+                x = regions.enter("attention", x)
+                y = self._attention(x, positions, triangular, tp)
+                x = x + regions.exit("attention", y)
             if _has_ssm(cfg):
-                x = x + ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
+                x = regions.enter("ssm", x)
+                y = ssm_lib.apply_ssm(self.ssm, self.ssm_norm(x), cfg, tp)
+                x = x + regions.exit("ssm", y)
         return self._feed_forward(x, tp)
 
     def decode(self, x_tok, layer_cache, pos, index: int, cache_len: int, tp=None):
@@ -568,14 +583,15 @@ class TransformerLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for layer in self.layers:
                 if cfg.remat:
-                    x, a = checkpoint(_run_layer, layer, x, positions, triangular, tp,
-                                      use_reentrant=False, preserve_rng_state=False)
+                    x, a = regions.checkpoint(_run_layer, layer, x, positions, triangular, tp,
+                                              use_reentrant=False, preserve_rng_state=False)
                 else:
                     x, a = _run_layer(layer, x, positions, triangular, tp)
                 if a is not None:
                     aux = aux + a
-            x = self.final_norm(x)
-            return lm_logits(x, self.embed, self.head, cfg.vocab_size, tp), aux
+            x = self.final_norm(regions.enter("head_loss", x))
+            logits = lm_logits(x, self.embed, self.head, cfg.vocab_size, tp)
+            return regions.exit("head_loss", logits), aux
 
     def forward(self, tokens: torch.Tensor, *, frontend_embeds=None,
                 triangular: bool = False, tp=None) -> torch.Tensor:
@@ -604,8 +620,9 @@ def lm_loss_parts(
     if frontend_embeds is not None:
         # labels only cover text positions; patch positions are unsupervised
         logits = logits[:, frontend_embeds.shape[1]:, :]
+    logits = regions.enter("head_loss", logits)
     ce = cross_entropy_loss(logits, labels, vocab_parallel(model.embed, model.head, tp))
-    return ce, moe_aux_weight * aux
+    return regions.exit("head_loss", ce), moe_aux_weight * aux
 
 
 def lm_loss(

@@ -1,5 +1,6 @@
-"""Always-on telemetry runtime: recorder, device events, gather, packets,
-and the per-job `Monitor` that wires them to the window labeler."""
+"""Always-on telemetry runtime: recorder, device-timed regions, device
+events, gather, packets, and the per-job `Monitor` that wires them to the
+window labeler."""
 from .collector import Monitor
 from .device_events import DeviceEventChannel
 from .gather import (
@@ -9,7 +10,8 @@ from .gather import (
     TorchDistTransport,
 )
 from .packets import EvidencePacket, decode_packet, encode_packet
-from .recorder import StageRecorder, StepRecord
+from .recorder import SideValues, StageRecorder, StepRecord
+from .regions import timed_regions
 
 __all__ = [
     "DeviceEventChannel",
@@ -17,10 +19,12 @@ __all__ = [
     "Monitor",
     "GatherResult",
     "InProcTransport",
+    "SideValues",
     "StageRecorder",
     "StepRecord",
     "TelemetryGather",
     "TorchDistTransport",
     "decode_packet",
     "encode_packet",
+    "timed_regions",
 ]

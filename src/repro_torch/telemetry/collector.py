@@ -1,7 +1,9 @@
 """StageFrontier monitor: the always-on integration used by the train loop.
 
 Wires together the rank-local StageRecorder, the sampled device-time side
-channel, the failure-safe window gather, the streaming WindowAggregator +
+channel, the device-timed regions of the step (`regions`: on while a
+profiler records, folded into each record's side channel), the
+failure-safe window gather, the streaming WindowAggregator +
 deterministic labeler, evidence packets, and the operational policy —
 the full paper pipeline behind two calls:
 
@@ -13,6 +15,7 @@ the full paper pipeline behind two calls:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -27,6 +30,7 @@ from .device_events import DeviceEventChannel
 from .gather import GatherResult, TelemetryGather
 from .packets import EvidencePacket, from_diagnosis
 from .recorder import StageRecorder
+from .regions import RegionTimer
 
 __all__ = ["Monitor"]
 
@@ -50,6 +54,9 @@ class Monitor:
         self.schema = schema
         self.rank = rank
         self.recorder = StageRecorder(schema)
+        #: device-timed regions of the step, into each record's side
+        #: channel (`regions`: on while a profiler records)
+        self.regions = RegionTimer(self.recorder)
         self.events = DeviceEventChannel(event_q)
         self.gatherer = (
             TelemetryGather(transport, rank) if transport is not None else None
@@ -71,7 +78,17 @@ class Monitor:
 
     def step(self):
         self._step_t0 = time.perf_counter()
-        return self.recorder.step()
+        return self._step()
+
+    @contextlib.contextmanager
+    def _step(self):
+        timed = not self.recorder.in_step and self.regions.begin_step()
+        try:
+            with self.recorder.step():
+                yield self.recorder
+        finally:
+            if timed:
+                self.regions.end_step(self.recorder.last())
 
     def stage(self, name: str):
         return self.recorder.stage(name)
@@ -92,6 +109,7 @@ class Monitor:
         last = self.recorder.last()
         if last is None:
             return None
+        self.regions.poll()
         self._local_rows.append(np.array(last.vector(self.schema)))
         self._local_walls.append(last.wall)
         for step, device_ms, cpu_ms in self.events.poll():

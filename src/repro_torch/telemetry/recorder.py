@@ -22,11 +22,42 @@ from typing import Iterator
 
 from ..core.contract import StageSchema
 
-__all__ = ["StageRecorder", "StepRecord"]
+__all__ = ["SideValues", "StageRecorder", "StepRecord"]
 
 
 def _now_s() -> float:
     return time.perf_counter_ns() * 1e-9
+
+
+class SideValues(dict):
+    """A step's side channel.  A measurement that settles after its step
+    has closed (device time, `regions.RegionTimer`) sets `settle`, which
+    the first read through the mapping's methods calls to fold it in."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.settle = None
+
+    def _settled(self) -> "SideValues":
+        settle, self.settle = self.settle, None
+        if settle is not None:
+            settle()
+        return self
+
+
+def _reading(name: str):
+    method = getattr(dict, name)
+
+    def read(self, *args, **kwargs):
+        return method(self._settled(), *args, **kwargs)
+
+    read.__name__ = name
+    return read
+
+
+for _name in ("__getitem__", "__contains__", "__iter__", "__len__", "__repr__", "__eq__",
+              "__ne__", "get", "keys", "values", "items", "copy"):
+    setattr(SideValues, _name, _reading(_name))
 
 
 @dataclasses.dataclass
@@ -109,7 +140,7 @@ class StageRecorder:
             step=self._step_index,
             durations=dict(self._cur),
             wall=wall,
-            side=dict(self._side),
+            side=SideValues(self._side),
         )
         self._history.append(record)
         self._step_index += 1
@@ -166,8 +197,13 @@ class StageRecorder:
         finally:
             self._side[name] = self._side.get(name, 0.0) + (_now_s() - t0)
 
-    def add_side_value(self, name: str, value: float) -> None:
-        self._side[name] = float(value)
+    def add_side_value(self, name: str, value: float,
+                       record: StepRecord | None = None) -> None:
+        """Add `value` to side channel `name` of the open step, or of the
+        closed step `record` (a measurement that settles after its step,
+        as device time does)."""
+        side = self._side if record is None else record.side
+        side[name] = side.get(name, 0.0) + float(value)
 
     # -- history ---------------------------------------------------------------------
 

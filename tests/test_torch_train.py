@@ -519,7 +519,9 @@ class TestTrainDriver:
 
     def test_policy_arms_a_ten_step_trace(self, tmp_path, monkeypatch):
         """A trigger_profiler action starts torch.profiler; ten steps later
-        the trace is written to --profile-dir as a Chrome trace."""
+        the trace is written to --profile-dir as a Chrome trace, and beside
+        it the traced steps' regions: each interval's region, phase, host
+        start on the trace's clock and device ms."""
         from repro_torch.distributed.policy import Action, MonitorPolicy
 
         fired = []
@@ -535,9 +537,19 @@ class TestTrainDriver:
         summary = train.run(self._args(
             tmp_path / "ckpt", 30, extra=["--profile-dir", str(prof_dir)]))
         assert [a["kind"] for a in summary["actions"]] == ["trigger_profiler"]
-        (trace,) = list(prof_dir.iterdir())
+        trace, regions = sorted(prof_dir.iterdir(), key=lambda p: p.name, reverse=True)
         assert trace.name == "trace_step19.json"  # armed at step 9, ten steps
         assert "traceEvents" in json.loads(trace.read_text())
+        assert regions.name == "regions_step19.json"
+        sidecar = json.loads(regions.read_text())
+        assert sidecar["clock"] == "time.time_ns"
+        assert [s["step"] for s in sidecar["steps"]] == list(range(10, 20))
+        for s in sidecar["steps"]:
+            starts = [i["host_start_ns"] for i in s["intervals"]]
+            assert starts == sorted(starts) and starts[-1] <= s["host_end_ns"]
+            assert {i["region"] for i in s["intervals"]} >= {
+                "embed", "attention", "mlp", "head_loss", "optimizer"}
+            assert all(i["device_ms"] >= 0 for i in s["intervals"])
 
     def test_data_stall_routes_to_data(self, tmp_path):
         summary = train.run(
