@@ -9,9 +9,23 @@ package — in these phases, and exits non-zero if any fails:
 
   build    compiles the five CUDA sources of `csrc/` (`fused_tick.cu`,
            `coactivation.cu`, `frontier_window.cu`, `whatif_matrix.cu`,
-           `regime_stats.cu`) with nvcc from the checkout, all at once,
-           prints what ptxas says of their registers, shared memory and
-           spills, and fails on any spill;
+           `regime_stats.cu`) and the attention kernel's (head_dim 64,
+           bf16) instance (`kernels/attention/csrc/causal_attention.cu`)
+           with nvcc from the checkout, all at once, prints what ptxas
+           says of their registers, shared memory and spills, and fails on
+           any spill;
+  attention  the causal-attention kernel at the benchmark cells' shapes
+           (granite-3-2b: [4, 4096, 32, 64] and [32, 512, 32, 64] bf16, 8
+           KV heads): its output against the plain walk's, its dq, dk
+           and dv against the plain walk's taken in f32 (the card tests'
+           limits; the greatest differences in the line), then its
+           forward (one launch, saving the log-sum-exp and the f32
+           output) and backward (two launches) timed with CUDA events,
+           L2 flushed, beside their bound (the FLOPs of one bf16 MMA for
+           q.k and three for P.V an element forward, eleven backward, at
+           989 TFLOP/s), the plain walk's forward and forward + backward,
+           and `scaled_dot_product_attention`'s (the yardstick, never
+           called by the port); an `attention` line;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
            group shapes, the larger service shape, edge shapes (one step,
@@ -303,6 +317,15 @@ SHARD_RUNS = ((3, "thread"), (8, "inline"))
 J_INVARIANCE_SHAPE = (32, 100, 128, 6)
 #: the sub-stacks: every power of two a shard's group pads to below 32
 J_INVARIANCE_STACKS = (1, 2, 4, 8, 16)
+#: the attention phase's shapes (the benchmark cells'): name -> (B, S, H, KV)
+ATTENTION_CASES = {"b4s4096": (4, 4096, 32, 8), "b32s512": (32, 512, 32, 8)}
+ATTENTION_HEAD_DIM = 64
+#: bf16 tensor-core rate of the H100 SXM (NVIDIA's data sheet, dense)
+BF16_FLOPS_PER_S = 989e12
+#: bf16 MMA passes of 2 x head_dim FLOPs a score element: q.k once and
+#: P.V in three parts forward; the backward's S, dP (one each) and dV,
+#: dK, dQ (three parts each)
+ATTENTION_FWD_PASSES, ATTENTION_BWD_PASSES = 4, 11
 #: with --keep-going: the kernel measurements that failed, and the
 #: errors that count as a failed measurement rather than a crash
 FAILURES = []
@@ -778,6 +801,98 @@ def kernel_phase(torch, np, fused, kernels, flush):
         )
         rows.append(row)
         print("kernel case " + json.dumps(row), flush=True)
+    return rows
+
+
+def attention_grad_errors(torch, fn, plain, q, k, v, dout) -> dict:
+    """The kernel's dq, dk and dv (through `fn`) against the plain walk's
+    taken in f32 on the same values and rounded once to bf16 (the bf16
+    walk sums each chunk's share of a gradient in bf16, the kernel in
+    f32), within the card tests' limits: 1e-5 of the largest value (f32
+    sums over up to 16,384 rows in another order) plus one bf16 rounding
+    (2**-7 relative).  Returns each gradient's greatest difference."""
+    def grads(f, *t):
+        t = [x.detach().requires_grad_() for x in t]
+        return torch.autograd.grad(f(*t), t, dout.to(t[0].dtype))
+
+    got = grads(fn, q, k, v)
+    want = [g.to(q.dtype) for g in grads(plain, q.float(), k.float(), v.float())]
+    errors = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-5 * scale, rtol=2**-7,
+                                   msg=lambda m, n=name: f"attention {n}: {m}")
+        errors[name] = float((a.float() - b.float()).abs().max())
+        errors[name + "_of_max"] = errors[name] / scale
+    return errors
+
+
+def attention_phase(torch, flush) -> list:
+    """The attention kernel at the cells' shapes: its output and its three
+    gradients against the plain walk's, then kernel, plain and library
+    times (CUDA events)."""
+    from repro_torch.kernels.attention import causal
+    from repro_torch.models import attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    d = ATTENTION_HEAD_DIM
+    for name, (b, s, h, kv) in ATTENTION_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(11)
+        q = (2 * torch.randn((b, s, h, d), generator=g, device="cuda")).bfloat16()
+        k = (2 * torch.randn((b, s, kv, d), generator=g, device="cuda")).bfloat16()
+        v = torch.randn((b, s, kv, d), generator=g, device="cuda").bfloat16()
+        dout = torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+        chunk = min(s, 1024)
+
+        def plain(*t):
+            return attention.chunked_causal_attention_plain(*t, q_chunk=chunk, kv_chunk=chunk)
+
+        with torch.no_grad():
+            got = attention.chunked_causal_attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
+            want = plain(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-4)
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        grad_errors = attention_grad_errors(
+            torch, lambda *t: attention.chunked_causal_attention(
+                *t, q_chunk=chunk, kv_chunk=chunk), plain, q, k, v, dout)
+        torch.cuda.empty_cache()
+        spec = causal._spec(q, k, None, True, None, chunk)
+        _, o32, lse = causal._forward(q, k, v, spec, save=True)
+
+        def with_grad(fn, *t):
+            t = [x.detach().requires_grad_() for x in t]
+            torch.autograd.grad(fn(*t), t, dout)
+
+        # the library takes [B, H, S, D] with K/V heads repeated for GQA
+        ql = q.transpose(1, 2).contiguous()
+        kl, vl = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        elements = b * h * s * (s + 1) // 2
+        flops = 2 * d * elements
+        row = dict(
+            case=name, shape=[b, s, h, d], kv_heads=kv, max_abs_err=err,
+            grad_max_abs_err=max(grad_errors[n] for n in ("dq", "dk", "dv")),
+            grad_errors=grad_errors,
+            ms=time_ms(lambda: causal._forward(q, k, v, spec, save=True), 10, torch, flush),
+            bwd_ms=time_ms(lambda: causal._backward(q, k, v, o32, lse, dout, spec),
+                           10, torch, flush),
+            bound_ms=ATTENTION_FWD_PASSES * flops / BF16_FLOPS_PER_S * 1e3,
+            bwd_bound_ms=ATTENTION_BWD_PASSES * flops / BF16_FLOPS_PER_S * 1e3,
+            bound_by="bf16 tensor-core FLOPs",
+            plain_ms=time_ms(lambda: plain(q, k, v).sum(), 3, torch, flush),
+            plain_fwd_bwd_ms=time_ms(lambda: with_grad(plain, q, k, v), 2, torch, flush),
+            library_ms=time_ms(lambda: sdpa(ql, kl, vl, is_causal=True), 10, torch, flush),
+            library_fwd_bwd_ms=time_ms(lambda: with_grad(
+                lambda *t: sdpa(*t, is_causal=True).transpose(1, 2), ql, kl, vl),
+                10, torch, flush),
+            launches_fwd=1, launches_bwd=2)
+        row["fwd_bwd_ms"] = row["ms"] + row["bwd_ms"]
+        rows.append(row)
+        print("attention " + json.dumps(row), flush=True)
+        del q, k, v, dout, o32, lse, ql, kl, vl
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1470,15 +1585,24 @@ def train_profile(torch, train) -> dict:
                 top=[dict(name=k[:80], device_us=us, count=c) for us, k, c in rows[:8]])
 
 
-def train_phase(torch, np, smi: str) -> int:
+def train_phase(torch, np, smi: str) -> tuple[int, dict]:
     """The training driver with the monitor on the card: (a) paper-gpt-125m
     at full width, bf16 with remat, and the same run profiled; (b) data
     stalls, one the prefetch hides and one it cannot; (c) one step on the
     card against the CPU; (d) the gather on NCCL.  Returns run (a)'s peak
-    memory in bytes."""
+    memory in bytes and its attention kernel launches, which must be
+    there: the main path takes the kernel."""
+    from repro_torch.kernels.attention import causal
     from repro_torch.launch import train
 
+    for key in causal.launches:
+        causal.launches[key] = 0
     summary, stats = train_run(torch, train, TRAIN_ARGS)
+    attention_launches = dict(causal.launches)
+    if not (attention_launches["forward"] > 0 and attention_launches["backward_dq"]
+            == attention_launches["backward_dkv"] > 0):
+        raise AssertionError(f"the train run's attention launches: {attention_launches}")
+    stats["attention_launches"] = attention_launches
     check_windows(summary, 3)
     if not summary["last_loss"] < summary["first_loss"]:
         raise AssertionError(f"loss {summary['first_loss']} -> {summary['last_loss']}")
@@ -1501,7 +1625,7 @@ def train_phase(torch, np, smi: str) -> int:
                                  f"window to data.next_wait: {stalled['windows']}")
     print("train_check " + json.dumps(card_against_cpu(torch, np)), flush=True)
     print("train_nccl " + json.dumps(nccl_gather(torch, np)), flush=True)
-    return stats["max_memory_allocated"]
+    return stats["max_memory_allocated"], attention_launches
 
 
 #: the serve phase (a): the model serve driver at paper-gpt-125m's full
@@ -2569,7 +2693,9 @@ def main() -> int:
     if not os.path.isfile(os.path.join(src, "repro_torch", "__init__.py")):
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, src)
-    from repro_torch.kernels.frontier import _lib, fused
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.attention import causal
+    from repro_torch.kernels.frontier import fused, ops
     from repro_torch.kernels.frontier import frontier as kernels
     from repro_torch.kernels.frontier import incidents as coact
     from repro_torch.launch import replay, serve_fleet
@@ -2582,8 +2708,12 @@ def main() -> int:
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = [source for source, _ in KERNELS.values()]
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(_lib.build, sources))
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        attention_lib = pool.submit(
+            _lib.build, "causal_attention.cu", causal.CSRC,
+            causal.library_flags(ATTENTION_HEAD_DIM, torch.bfloat16))
+        libs = list(pool.map(lambda src: _lib.build(src, ops.CSRC, ops.NVCC_FLAGS), sources))
+        libs.append(attention_lib.result())
     print(f"build {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     spills = []
@@ -2598,6 +2728,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
     rows = kernel_phase(torch, np, fused, kernels, flush)
+    attention_rows = attention_phase(torch, flush)
     fused_groups = {}
     with recording_fused(fused, fused_groups):
         coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
@@ -2625,7 +2756,7 @@ def main() -> int:
     profile_phase(torch, serve_fleet, "service", SERVICE_ARGS)
     profile_phase(torch, serve_fleet, "fabric", FABRIC_ARGS)
     smi = card_name()
-    train_peak = train_phase(torch, np, smi)
+    train_peak, attention_launches = train_phase(torch, np, smi)
     serve_phase(torch, smi)
     ex_fused, ex_families = {}, {}
     examples_phase(torch, fused, kernels, coact, ex_fused, ex_families)
@@ -2662,6 +2793,17 @@ def main() -> int:
                    tick_rows["regime_stats"] + case_rows["regime_stats"]
                    + shard_rows["regime_stats"],
                    largest(tick_rows["regime_stats"])),
+        # the train phase's launches; times at the 4k cell's layer
+        dict(name="causal_attention", route="cuda",
+             source="src/repro_torch/kernels/attention/csrc/causal_attention.cu",
+             replaces="none: the JAX package leaves attention to XLA "
+                      "(src/repro/models/attention.py)",
+             launches=sum(attention_launches.values()),
+             max_abs_err=max(r["max_abs_err"] for r in attention_rows),
+             grad_max_abs_err=max(r["grad_max_abs_err"] for r in attention_rows),
+             **{key: attention_rows[0][key] for key in (
+                 "ms", "bwd_ms", "plain_ms", "plain_fwd_bwd_ms", "bound_ms", "bwd_bound_ms",
+                 "bound_by", "library_ms", "library_fwd_bwd_ms")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

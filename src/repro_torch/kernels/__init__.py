@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the fleet tick (Hopper, sm_90a).
+"""Hand-written CUDA kernels (Hopper, sm_90a): the fleet tick's and the
+models' causal attention.
 
 frontier/ — `csrc/` holds the kernels: the fused fleet tick
 (`fused_tick.cu`), the three single-family kernels of the four-dispatch
@@ -8,6 +9,12 @@ reference route (`frontier_window.cu`, `whatif_matrix.cu`,
 plain PyTorch version, the epilog and `four_dispatch_tick`),
 `frontier.py` (the single-family wrappers and their plain versions),
 `incidents.py` (co-activation), `ops.py` (packet types, the shared
-prolog and epilogs, the single-family routes) and `ref.py` (plain-torch
-oracles).
+prolog and epilogs, the single-family routes, the sources' directory and
+flags) and `ref.py` (plain-torch oracles).
+
+attention/ — `csrc/causal_attention.cu`, the causal attention that
+`models.attention.chunked_causal_attention` runs on CUDA tensors, and
+`causal.py`, its wrapper and the plain version of its arithmetic.
+
+`_lib.py` builds and loads every kernel library of the port.
 """

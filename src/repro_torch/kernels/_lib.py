@@ -1,12 +1,15 @@
-"""Build and load the hand-written CUDA kernels of `csrc/`.
+"""Build and load the hand-written CUDA kernels of the port.
 
 Each source is compiled on first use with ``nvcc`` for Hopper (sm_90a)
 into a shared library with a plain C interface, keyed by a hash of the
-source, the shared headers and the flags, under
+source, the headers beside it and the flags, under
 ``build/repro_torch_kernels/`` at the root of the checkout, and loaded
-with `ctypes`.  Nothing is compiled or loaded when this module is
-imported.  Loading is safe from several threads at once (the sharded
-fleet service's lanes): one build and one bind per library and process.
+with `ctypes`.  Each caller names the source's directory and its flags
+(`NVCC_ARCH_FLAGS` and its own): one source built with two sets of flags
+(say, two ``-D`` instances) gives two libraries.
+Nothing is compiled or loaded when this module is imported.  Loading is
+safe from several threads at once (the sharded fleet service's lanes):
+one build and one bind per library and process.
 The wrappers count their launches through `count_launch`, under a lock.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ import subprocess
 import threading
 
 __all__ = [
+    "NVCC_ARCH_FLAGS",
     "build",
     "build_dir",
     "check_tensor",
@@ -29,25 +33,26 @@ __all__ = [
     "nvcc_path",
 ]
 
-_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_NVCC_FLAGS = (
+#: every library's target, language, shared-object and report flags
+NVCC_ARCH_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-ftz=true", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: seconds one nvcc invocation may take before the build is abandoned
 _BUILD_TIMEOUT_S = 600
 
-_loaded: dict[str, ctypes.CDLL] = {}
+#: the loaded libraries, by (source name, directory, flags)
+_loaded: dict[tuple, ctypes.CDLL] = {}
 #: held across the check, build, load, bind and insert of `load_library`
 _load_lock = threading.Lock()
 #: held around each launch count's increment (`count_launch`)
 _count_lock = threading.Lock()
 
 
-def kernel_source(name: str) -> pathlib.Path:
-    """Path of the CUDA source `name` (e.g. ``"fused_tick.cu"``)."""
-    path = _CSRC / name
+def kernel_source(name: str, csrc: pathlib.Path) -> pathlib.Path:
+    """Path of the CUDA source `name` (e.g. ``"fused_tick.cu"``) in
+    the directory `csrc`."""
+    path = pathlib.Path(csrc) / name
     if not path.is_file():
         raise FileNotFoundError(f"no CUDA source {path}")
     return path
@@ -55,7 +60,7 @@ def kernel_source(name: str) -> pathlib.Path:
 
 def build_dir() -> pathlib.Path:
     """``build/repro_torch_kernels`` at the root of the checkout."""
-    return _CSRC.parents[4] / "build" / "repro_torch_kernels"
+    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 
 def nvcc_path() -> str:
@@ -76,25 +81,25 @@ def nvcc_path() -> str:
     )
 
 
-def _library_path(src: pathlib.Path) -> pathlib.Path:
-    """The keyed library of `src`: the hash covers the source, every
-    header of ``csrc/`` (any of them may be included) and the flags, so
-    an edit to a shared header rebuilds every source."""
+def _library_path(src: pathlib.Path, flags) -> pathlib.Path:
+    """The keyed library of `src` built with `flags`: the hash covers the source, every header beside it (any of
+    them may be included) and the flags, so an edit to a shared header
+    rebuilds every source of its directory."""
     digest = hashlib.sha256()
     digest.update(src.read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
+    for header in sorted(src.parent.glob("*.cuh")):
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile `csrc/<name>` unless its keyed library exists; returns the
-    library path.  The compiler's report (registers, spills) is kept
-    beside it as ``<library>.log``."""
-    src = kernel_source(name)
-    lib = _library_path(src)
+def build(name: str, csrc: pathlib.Path, flags) -> pathlib.Path:
+    """Compile `<csrc>/<name>` with `flags` unless its keyed library
+    exists; returns the library path.  The compiler's report (registers,
+    spills) is kept beside it as ``<library>.log``."""
+    src = kernel_source(name, csrc)
+    lib = _library_path(src, flags)
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -102,7 +107,7 @@ def build(name: str) -> pathlib.Path:
     tmp = lib.with_name(
         f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
     )
-    cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S
     )
@@ -125,16 +130,18 @@ def count_launch(counts: dict, key: str) -> None:
         counts[key] += 1
 
 
-def load_library(name: str, bind) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>`, then `bind(lib)` to
-    declare its C interface; both once per process, however many threads
-    ask at once."""
+def load_library(name: str, bind, csrc: pathlib.Path, flags) -> ctypes.CDLL:
+    """Build (if needed) and load `<csrc>/<name>` with `flags` (as
+    `build`), then `bind(lib)` to declare its C interface; both once per
+    process and (name, directory, flags), however many threads ask at
+    once."""
+    key = (name, str(csrc), tuple(flags))
     with _load_lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, csrc, flags)))
             bind(lib)
-            _loaded[name] = lib
+            _loaded[key] = lib
     return lib
 
 

@@ -31,9 +31,11 @@ import ctypes
 
 import torch
 
-from . import _lib
+from .. import _lib
 from .ops import (
     BIG_IDX,
+    CSRC,
+    NVCC_FLAGS,
     TickInputs,
     ftz,
     imputed_work,
@@ -118,7 +120,7 @@ def _frontier_cuda(x: TickInputs):
     dev = x.d.device
     _lib.check_tensor(x.bd, "bd", (jn, n, r, s), torch.float32, dev,
                       contiguous=False)
-    lib = _lib.load_library("frontier_window.cu", _bind_frontier)
+    lib = _lib.load_library("frontier_window.cu", _bind_frontier, CSRC, NVCC_FLAGS)
     # the kernel's own rule: one block over every rank (no partials), or
     # rank tiles and a fold of their partials
     tiles = lib.frontier_window_tiles(r, s)
@@ -189,7 +191,7 @@ def _whatif_cuda(x: TickInputs) -> torch.Tensor:
     if x.sync_stages:
         _lib.check_tensor(x.wmin, "wmin", (jn, n, s), f32, dev)
         wmin = x.wmin
-    lib = _lib.load_library("whatif_matrix.cu", _bind_whatif)
+    lib = _lib.load_library("whatif_matrix.cu", _bind_whatif, CSRC, NVCC_FLAGS)
     wif = torch.empty((jn, s, r), dtype=f32, device=dev)
     # the cell walk's segment sums past 32 stages (the library's count)
     scratch = lib.whatif_matrix_scratch_floats(jn, n, r, s)
@@ -265,7 +267,7 @@ def _regime_cuda(x: TickInputs) -> tuple[torch.Tensor, ...]:
     if x.sync_stages:
         _lib.check_tensor(x.wmin, "wmin", (jn, n, s), f32, dev)
         wmin = x.wmin
-    lib = _lib.load_library("regime_stats.cu", _bind_regimes)
+    lib = _lib.load_library("regime_stats.cu", _bind_regimes, CSRC, NVCC_FLAGS)
     out = tuple(torch.empty((jn, s, r), dtype=i32, device=dev) for _ in range(5))
     out += tuple(torch.empty((jn, s, r), dtype=f32, device=dev) for _ in range(2))
     with torch.cuda.device(dev):

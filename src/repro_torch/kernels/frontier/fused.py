@@ -46,7 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ...core.regimes import RegimeParams as _RegimeParams
-from . import _lib
+from .. import _lib
 from .frontier import (
     _excess,
     _frontier_plain,
@@ -58,6 +58,8 @@ from .frontier import (
 )
 from .incidents import co_activation, co_activation_ref
 from .ops import (
+    CSRC,
+    NVCC_FLAGS,
     CoActivationPacket,
     FleetPacket,
     FleetRegimePacket,
@@ -144,7 +146,7 @@ def _fused_tick_cuda(x: TickInputs) -> TickAccumulators:
     if d.dim() != 4 or min(d.shape) < 1:
         raise ValueError(f"d must be a non-empty [J, N, R, S], got {tuple(d.shape)}")
     jn, n, r, s = d.shape
-    lib = _lib.load_library(_SOURCE, _bind)
+    lib = _lib.load_library(_SOURCE, _bind, CSRC, NVCC_FLAGS)
     f32, i32 = torch.float32, torch.int32
     _lib.check_tensor(d, "d", (jn, n, r, s), f32, dev)
     for name in ("bd", "bw"):

@@ -38,8 +38,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import _lib
-from .ops import CoActivationPacket
+from .. import _lib
+from .ops import CSRC, NVCC_FLAGS, CoActivationPacket
 
 __all__ = [
     "CoActivationPacket",
@@ -158,7 +158,7 @@ def _co_activation_cuda(act: torch.Tensor) -> CoActivationPacket:
     if min(act.shape) == 0:
         z = torch.zeros((s, h), **zeros)
         return CoActivationPacket(z, z.clone(), z.clone())
-    lib = _lib.load_library(_SOURCE, _bind)
+    lib = _lib.load_library(_SOURCE, _bind, CSRC, NVCC_FLAGS)
     # the kernel writes every entry once: no scratch, nothing zeroed
     jobs, coact, active = (torch.empty((s, h), **zeros) for _ in range(3))
     with torch.cuda.device(dev):

@@ -30,6 +30,7 @@ so the plain versions flush on any device and under no process flag.
 """
 from __future__ import annotations
 
+import pathlib
 from typing import NamedTuple
 
 import numpy as np
@@ -37,13 +38,21 @@ import torch
 
 from ...core.regimes import RegimeParams as _RegimeParams
 from ...core.whatif import sync_segments
+from .._lib import NVCC_ARCH_FLAGS
+
+#: the frontier kernels' sources
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+#: their nvcc flags: subnormals flushed, as the reference flushes them
+NVCC_FLAGS = (*NVCC_ARCH_FLAGS, "-ftz=true")
 
 __all__ = [
+    "CSRC",
     "CoActivationPacket",
     "FleetPacket",
     "FleetRegimePacket",
     "FleetWhatIfPacket",
     "FrontierPacket",
+    "NVCC_FLAGS",
     "RegimePacket",
     "TickInputs",
     "WhatIfPacket",

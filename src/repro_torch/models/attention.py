@@ -10,8 +10,16 @@ over KV chunks carrying (max, denominator, accumulator), so peak scores
 memory is q_chunk x kv_chunk instead of S^2.  Eager PyTorch has no scan,
 so the reference's scan and its unrolled form are one Python loop here.
 With ``triangular=True`` the walk takes only the KV chunks a Q chunk can
-see.  `scaled_dot_product_attention` does not stand in for this: the
-port follows the reference's arithmetic, chunk by chunk.
+see; the other chunks add exactly 0 to its sum and accumulator (their
+``exp(NEG - m)`` is 0), so both walks give the same values.
+
+On the card a hand-written kernel (`kernels.attention.causal_attention`)
+takes the same walk tile by tile, at f32 precision with another order of
+f32 sums: scores, probabilities and their gradients stay on the chip, key
+tiles the mask hides are skipped, and the backward recomputes the
+probabilities from the saved log-sum-exp.  A CUDA input the kernel does
+not take raises.  CPU tensors, and the dry run's fake tensors (no data;
+the dry run counts the plain walk's operations), keep the plain walk.
 
 Prefill split over query blocks (a rank of the model axis that holds
 whole heads and too few (batch, kv head) groups to share them): each
@@ -43,13 +51,16 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.attention import causal_attention
 from ..telemetry import regions
 
 __all__ = [
     "NEG",
     "chunked_causal_attention",
+    "chunked_causal_attention_plain",
     "chunked_decode_attention",
     "decode_attention",
     "decode_attention_bksd",
@@ -130,7 +141,35 @@ def chunked_causal_attention(
     ``q_chunk``-row blocks of the sequence that q holds, in order (None:
     all of them, Sq = S); each block's mask and triangular walk follow
     its global positions, so it is computed as the whole walk computes it.
+
+    CUDA tensors go to the kernel (`kernels.attention.causal_attention`),
+    which keeps nothing of P whatever ``remat_qblock`` says and walks the
+    key tiles a query tile sees whatever ``triangular`` says; it raises for
+    ``cast_f32=False`` on bf16 tensors, which no configuration runs there.
     """
+    if q.device.type != "cuda" or is_fake(q):
+        return chunked_causal_attention_plain(
+            q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, window=window, triangular=triangular,
+            cast_f32=cast_f32, remat_qblock=remat_qblock, q_blocks=q_blocks)
+    return causal_attention(q, k, v, window=window, cast_f32=cast_f32, q_blocks=q_blocks,
+                            q_chunk=min(q_chunk, k.shape[1]))
+
+
+def chunked_causal_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    window: int | None = None,
+    triangular: bool = False,
+    cast_f32: bool = True,
+    remat_qblock: bool = True,
+    q_blocks: Sequence[int] | None = None,
+) -> torch.Tensor:
+    """`chunked_causal_attention`'s plain walk on any device: what CPU
+    tensors take, and what the card's kernel is held against."""
     b, sq, h, d = q.shape
     s = k.shape[1]
     n_kv = k.shape[2]

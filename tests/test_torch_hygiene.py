@@ -21,7 +21,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.fleet import FleetService, ShardedFleetService  # noqa: E402
 from repro_torch.incidents import IncidentEngine  # noqa: E402
-from repro_torch.kernels.frontier import _lib, fused  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.frontier import fused  # noqa: E402
+from repro_torch.kernels.frontier.ops import CSRC, NVCC_FLAGS  # noqa: E402
 from repro_torch.kernels.frontier import frontier as kernels  # noqa: E402
 from repro_torch.kernels.frontier import incidents as coactivation  # noqa: E402
 from repro_torch.launch import replay, serve, serve_fleet, train  # noqa: E402
@@ -76,6 +78,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.incidents.topology",
                  "repro_torch.kernels.frontier.frontier",
                  "repro_torch.kernels.frontier.ref",
+                 "repro_torch.kernels._lib",
+                 "repro_torch.kernels.attention",
+                 "repro_torch.kernels.attention.causal",
                  "repro_torch.replay", "repro_torch.replay.engine",
                  "repro_torch.replay.trace", "repro_torch.launch.replay",
                  "repro_torch.telemetry.collector",
@@ -242,23 +247,22 @@ def test_cpu_four_dispatch_leaves_every_launch_count_at_zero(monkeypatch):
 def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a header under csrc/ must key a new library: a stale
     one would otherwise load."""
-    real = _lib.kernel_source("fused_tick.cu").parent
+    real = _lib.kernel_source("fused_tick.cu", CSRC).parent
     assert (real / "frontier_common.cuh").is_file()
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
     header = tmp_path / "common.cuh"
     header.write_text("constexpr int kA = 1;\n")
-    monkeypatch.setattr(_lib, "_CSRC", tmp_path)
     monkeypatch.setattr(_lib, "build_dir", lambda: tmp_path / "build")
-    before = _lib._library_path(tmp_path / "k.cu")
+    before = _lib._library_path(tmp_path / "k.cu", NVCC_FLAGS)
     header.write_text("constexpr int kA = 2;\n")
-    assert _lib._library_path(tmp_path / "k.cu") != before
+    assert _lib._library_path(tmp_path / "k.cu", NVCC_FLAGS) != before
 
 
 def test_fused_and_whatif_kernels_share_the_cell_walk():
     """The fused tick and the four-dispatch what-if kernel must agree bit
     for bit, so both build the one cell walk rather than copies of it."""
     for name in ("fused_tick.cu", "whatif_matrix.cu"):
-        text = _lib.kernel_source(name).read_text()
+        text = _lib.kernel_source(name, CSRC).read_text()
         assert '#include "cell_walk.cuh"' in text, name
         assert "cell_warp_kernel" not in text and "cell_slab_kernel" not in text, name
 
@@ -267,7 +271,7 @@ def test_regime_kernel_runs_the_cell_walk():
     """The regime kernel takes its statistics from the cell walk's one
     fold (`CellState`) with the what-if family off, so both routes share
     it: no kernel and no step loop of its own."""
-    text = _lib.kernel_source("regime_stats.cu").read_text()
+    text = _lib.kernel_source("regime_stats.cu", CSRC).read_text()
     assert '#include "cell_walk.cuh"' in text
     assert "launch_cell_walk<false, true, false>" in text
     assert "__global__" not in text and "for (int n" not in text
@@ -278,7 +282,7 @@ def test_cell_walk_and_coactivation_refuse_no_size():
     returns cudaErrorInvalidValue, the error of the former shared-memory
     limits (about 2,400 stages, about 14,500 jobs a call)."""
     for name in ("cell_walk.cuh", "coactivation.cu"):
-        assert "cudaErrorInvalidValue" not in _lib.kernel_source(name).read_text(), name
+        assert "cudaErrorInvalidValue" not in _lib.kernel_source(name, CSRC).read_text(), name
 
 
 def test_cell_walk_wrappers_take_scratch_from_the_library():
@@ -301,7 +305,7 @@ def test_cell_walk_wrappers_take_scratch_from_the_library():
         assert getattr(lib, name).argtypes == [integer] * 4
         assert getattr(lib, name).restype is ctypes.c_longlong
     for name in ("fused_tick.cu", "whatif_matrix.cu"):
-        assert "cell_scratch_floats(J, N, R, S)" in _lib.kernel_source(name).read_text()
+        assert "cell_scratch_floats(J, N, R, S)" in _lib.kernel_source(name, CSRC).read_text()
 
 
 def test_frontier_kernel_takes_its_prefix_from_the_shared_header():
@@ -309,10 +313,10 @@ def test_frontier_kernel_takes_its_prefix_from_the_shared_header():
     fused route's order, so it takes them from `frontier_common.cuh`
     (the warp fold's shuffle chain, the rank tiles' `StagePrefix`) and
     keeps no copy of its own."""
-    text = _lib.kernel_source("frontier_window.cu").read_text()
+    text = _lib.kernel_source("frontier_window.cu", CSRC).read_text()
     assert '#include "frontier_common.cuh"' in text
     assert "warp_stage_prefix(" in text and "StagePrefix pfx" in text
-    common = _lib.kernel_source("frontier_common.cuh").read_text()
+    common = _lib.kernel_source("frontier_common.cuh", CSRC).read_text()
     for name in ("struct StagePrefix", "void warp_stage_prefix"):
         assert name in common and name not in text, name
 
@@ -377,7 +381,7 @@ def test_concurrent_load_builds_and_binds_once(monkeypatch):
     `CDLL`, one bind, and every thread gets the same library."""
     calls = {"build": 0, "cdll": 0, "bind": 0}
 
-    def slow_build(name):
+    def slow_build(name, csrc, flags):
         calls["build"] += 1
         time.sleep(0.05)
         return pathlib.Path("/nonexistent") / f"lib{name}.so"
@@ -396,7 +400,7 @@ def test_concurrent_load_builds_and_binds_once(monkeypatch):
     got = [None] * 8
 
     def load(k):
-        got[k] = _lib.load_library("fused_tick.cu", bind)
+        got[k] = _lib.load_library("fused_tick.cu", bind, CSRC, NVCC_FLAGS)
 
     _in_threads(load)
     assert calls == {"build": 1, "cdll": 1, "bind": 1}
@@ -426,7 +430,7 @@ def test_concurrent_builds_use_their_own_temporary_files(tmp_path, monkeypatch):
     paths = [None, None]
 
     def build(k):
-        paths[k] = _lib.build("coactivation.cu")
+        paths[k] = _lib.build("coactivation.cu", CSRC, NVCC_FLAGS)
 
     _in_threads(build, n=2)
     assert len(targets) == 2 and targets[0] != targets[1]
