@@ -317,8 +317,10 @@ SHARD_RUNS = ((3, "thread"), (8, "inline"))
 J_INVARIANCE_SHAPE = (32, 100, 128, 6)
 #: the sub-stacks: every power of two a shard's group pads to below 32
 J_INVARIANCE_STACKS = (1, 2, 4, 8, 16)
-#: the attention phase's shapes (the benchmark cells'): name -> (B, S, H, KV)
-ATTENTION_CASES = {"b4s4096": (4, 4096, 32, 8), "b32s512": (32, 512, 32, 8)}
+#: the attention phase's shapes (the benchmark cells'): name -> (B, S, H,
+#: KV, sliding window or None)
+ATTENTION_CASES = {"b4s4096": (4, 4096, 32, 8, None), "b32s512": (32, 512, 32, 8, None),
+                   "hymba-b4s4096": (4, 4096, 25, 5, 1024)}
 ATTENTION_HEAD_DIM = 64
 #: bf16 tensor-core rate of the H100 SXM (NVIDIA's data sheet, dense)
 BF16_FLOPS_PER_S = 989e12
@@ -837,7 +839,7 @@ def attention_phase(torch, flush) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     d = ATTENTION_HEAD_DIM
-    for name, (b, s, h, kv) in ATTENTION_CASES.items():
+    for name, (b, s, h, kv, window) in ATTENTION_CASES.items():
         g = torch.Generator(device="cuda").manual_seed(11)
         q = (2 * torch.randn((b, s, h, d), generator=g, device="cuda")).bfloat16()
         k = (2 * torch.randn((b, s, kv, d), generator=g, device="cuda")).bfloat16()
@@ -846,33 +848,47 @@ def attention_phase(torch, flush) -> list:
         chunk = min(s, 1024)
 
         def plain(*t):
-            return attention.chunked_causal_attention_plain(*t, q_chunk=chunk, kv_chunk=chunk)
+            return attention.chunked_causal_attention_plain(*t, q_chunk=chunk, kv_chunk=chunk,
+                                                            window=window)
+
+        def kernel(*t):
+            return attention.chunked_causal_attention(*t, q_chunk=chunk, kv_chunk=chunk,
+                                                      window=window)
 
         with torch.no_grad():
-            got = attention.chunked_causal_attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
+            got = kernel(q, k, v)
             want = plain(q, k, v)
         torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-4)
         err = float((got.float() - want.float()).abs().max())
         del got, want
-        grad_errors = attention_grad_errors(
-            torch, lambda *t: attention.chunked_causal_attention(
-                *t, q_chunk=chunk, kv_chunk=chunk), plain, q, k, v, dout)
+        grad_errors = attention_grad_errors(torch, kernel, plain, q, k, v, dout)
         torch.cuda.empty_cache()
-        spec = causal._spec(q, k, None, True, None, chunk)
+        spec = causal._spec(q, k, window, True, None, chunk)
         _, o32, lse = causal._forward(q, k, v, spec, save=True)
 
         def with_grad(fn, *t):
             t = [x.detach().requires_grad_() for x in t]
             torch.autograd.grad(fn(*t), t, dout)
 
-        # the library takes [B, H, S, D] with K/V heads repeated for GQA
+        # the library takes [B, H, S, D] with K/V heads repeated for GQA;
+        # a window as a mask of the keys each query may read
         ql = q.transpose(1, 2).contiguous()
         kl, vl = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
                   for x in (k, v))
-        elements = b * h * s * (s + 1) // 2
+        pos = torch.arange(s, device="cuda")
+        mask = None if window is None else (
+            (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window))
+
+        def library(*t):
+            if mask is None:
+                return sdpa(*t, is_causal=True)
+            return sdpa(*t, attn_mask=mask)
+
+        w = s if window is None else window
+        elements = b * h * sum(min(i + 1, w) for i in range(s))
         flops = 2 * d * elements
         row = dict(
-            case=name, shape=[b, s, h, d], kv_heads=kv, max_abs_err=err,
+            case=name, shape=[b, s, h, d], kv_heads=kv, window=window, max_abs_err=err,
             grad_max_abs_err=max(grad_errors[n] for n in ("dq", "dk", "dv")),
             grad_errors=grad_errors,
             ms=time_ms(lambda: causal._forward(q, k, v, spec, save=True), 10, torch, flush),
@@ -883,15 +899,15 @@ def attention_phase(torch, flush) -> list:
             bound_by="bf16 tensor-core FLOPs",
             plain_ms=time_ms(lambda: plain(q, k, v).sum(), 3, torch, flush),
             plain_fwd_bwd_ms=time_ms(lambda: with_grad(plain, q, k, v), 2, torch, flush),
-            library_ms=time_ms(lambda: sdpa(ql, kl, vl, is_causal=True), 10, torch, flush),
+            library_ms=time_ms(lambda: library(ql, kl, vl), 10, torch, flush),
             library_fwd_bwd_ms=time_ms(lambda: with_grad(
-                lambda *t: sdpa(*t, is_causal=True).transpose(1, 2), ql, kl, vl),
+                lambda *t: library(*t).transpose(1, 2), ql, kl, vl),
                 10, torch, flush),
             launches_fwd=1, launches_bwd=2)
         row["fwd_bwd_ms"] = row["ms"] + row["bwd_ms"]
         rows.append(row)
         print("attention " + json.dumps(row), flush=True)
-        del q, k, v, dout, o32, lse, ql, kl, vl
+        del q, k, v, dout, o32, lse, ql, kl, vl, mask
         torch.cuda.empty_cache()
     return rows
 

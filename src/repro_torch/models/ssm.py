@@ -1,10 +1,10 @@
 """Mamba-2 SSD mixer (state-space duality, arXiv:2405.21060).
 
 Chunked SSD: the sequence is split into chunks of Q tokens; within a
-chunk the output is the quadratic ("attention-like") masked form, across
-chunks a loop carries the [B, H, P, N] state.  Eager PyTorch has no
-scan, so the reference's scan over chunks and its unrolled form are one
-Python loop here.
+chunk the output is the quadratic ("attention-like") masked form; the
+[B, H, P, N] state entering each chunk is one product of the chunks'
+states with the decays between them, where the reference scans over
+the chunks.
 
 Decode is the recurrent form: h <- h * exp(dt*A) + dt * (B outer x); one
 token costs O(H*P*N) and the cache is (conv tail, state), both f32,
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..telemetry import regions
 from .layers import dense_init, gathered_columns
 
 __all__ = [
@@ -107,49 +108,61 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """[..., T] -> [..., T, T]: entry (i, j) the sum of x over (j, i] for
+    j <= i, by a masked cumulative sum (no difference of long prefix
+    sums), and -inf above the diagonal."""
+    t = x.shape[-1]
+    x = x[..., None].expand(*x.shape, t)
+    below = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device), -1)
+    out = torch.cumsum(x.masked_fill(~below, 0.0), dim=-2)
+    keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~keep, float("-inf"))
+
+
 def _ssd(xh, dt, a, d_skip, b_, c_, q):
     """The chunked SSD over the heads given: xh [B, S, H, P] (the conv's
     x), dt [B, S, H] (after the softplus), a and d_skip [H], b_ and c_
     [B, S, N] -> y [B, S, H, P] f32, the D term added.  Each head's
     channels depend on that head's dt, a and D and on the shared B and C
-    only, so a slice of the heads gives that slice of y."""
+    only, so a slice of the heads gives that slice of y.
+
+    Within a chunk, the decay from token j to token i is exp of the
+    difference of their cumulative sums, masked to -inf above the
+    diagonal *before* the exp: above it the difference is positive and
+    overflows, and an inf there would turn the backward of a later mask
+    into NaN.  Across chunks, each chunk's entering state is one product
+    of the chunks' states with the decays between them (`_segsum` of the
+    chunks' totals), not a loop.  The region ``ssm_scan`` (nested in
+    ``ssm``) spans the function."""
     b, s, h, hp = xh.shape
     n = b_.shape[-1]
     nc = s // q
-    # chunked views
-    dtc = dt.reshape(b, nc, q, h)
-    xcq = (xh * dt[..., None]).reshape(b, nc, q, h, hp)             # dt-weighted input
+    xh = regions.enter("ssm_scan", xh)
+    # chunked views, head-major: [B, NC, H, Q(, P)]
+    xq = (xh * dt[..., None]).reshape(b, nc, q, h, hp).transpose(2, 3)  # dt-weighted input
     bq = b_.reshape(b, nc, q, n)
     cq = c_.reshape(b, nc, q, n)
-    da = dtc * a[None, None, None, :]                               # [B,NC,Q,H]
-    da_cum = torch.cumsum(da, dim=2)                                # within-chunk
-    da_total = da_cum[:, :, -1, :]                                  # [B,NC,H]
+    da = dt.reshape(b, nc, q, h) * a[None, None, None, :]
+    cum = torch.cumsum(da, dim=2).transpose(2, 3)                   # [B,NC,H,Q] within-chunk
 
     # ---- intra-chunk (quadratic within chunk) -----------------------------
-    # L[i,j] = exp(da_cum[i] - da_cum[j]) for j <= i else 0
-    seg = da_cum[:, :, :, None, :] - da_cum[:, :, None, :, :]       # [B,NC,Q,Q,H]
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
-    l_mat = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    # L[i,j] = exp(cum[i] - cum[j]) for j <= i else 0
+    keep = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, float("-inf"))
     scores = torch.einsum("bcin,bcjn->bcij", cq, bq)                # [B,NC,Q,Q]
-    y_intra = torch.einsum(
-        "bcij,bcijh,bcjhp->bcihp", scores, l_mat, xcq
-    )                                                               # [B,NC,Q,H,P]
+    y = (scores[:, :, None] * torch.exp(seg)) @ xq                  # [B,NC,H,Q,P]
 
-    # ---- chunk states + inter-chunk recurrence -----------------------------
-    decay_to_end = torch.exp(da_total[:, :, None, :] - da_cum)      # [B,NC,Q,H]
-    states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bq, decay_to_end, xcq)
+    # ---- chunk states, then the state entering each chunk ------------------
+    to_end = torch.exp(cum[..., -1:] - cum)                         # [B,NC,H,Q]
+    states = torch.einsum("bcjn,bchj,bchjp->bchpn", bq, to_end, xq)  # [B,NC,H,P,N]
+    totals = F.pad(cum[..., -1].transpose(1, 2), (1, 0))            # [B,H,NC+1]
+    across = torch.exp(_segsum(totals))[..., :-1, 1:]               # [B,H,NC,NC]
+    h_in = torch.einsum("bhzc,bchpn->bzhpn", across, states)        # [B,NC,H,P,N]
+    y = y + torch.exp(cum)[..., None] * (cq[:, :, None] @ h_in.transpose(-1, -2))
 
-    h_cur = torch.zeros((b, h, hp, n), dtype=torch.float32, device=xh.device)
-    h_in = []
-    for ci in range(nc):
-        h_in.append(h_cur)
-        h_cur = h_cur * torch.exp(da_total[:, ci])[:, :, None, None] + states[:, ci]
-    h_in = torch.stack(h_in, dim=1)                                 # [B,NC,H,P,N]
-    decay_from_start = torch.exp(da_cum)                            # [B,NC,Q,H]
-    y_inter = torch.einsum("bcin,bcih,bchpn->bcihp", cq, decay_from_start, h_in)
-
-    y = (y_intra + y_inter).reshape(b, s, h, hp)
-    return y + d_skip[None, None, :, None] * xh.float()
+    y = y.transpose(2, 3).reshape(b, s, h, hp)
+    return regions.exit("ssm_scan", y + d_skip[None, None, :, None] * xh.float())
 
 
 def channel_heads(lo: int, hi: int, head_dim: int) -> tuple[int, int]:

@@ -6,6 +6,13 @@ name.  The moments stay f32, the update is computed in f32 and cast back
 to each parameter's dtype, and nothing in a step reads a value back to
 the host: the clip scale, the bias corrections and the learning rate are
 device tensors.
+
+The update runs over groups of leaves with multi-tensor (``_foreach``)
+ops, a few launches a group where a loop over the leaves took some
+twenty a leaf; each op is the loop's elementwise op in the loop's order,
+so every leaf gets the same bits.  A group holds at most as many
+elements as the largest leaf (a larger leaf alone), so its f32
+temporaries never outgrow those the largest leaf needs by itself.
 """
 from __future__ import annotations
 
@@ -94,14 +101,43 @@ def apply_updates(
     b1c = 1 - cfg.b1 ** count.float()
     b2c = 1 - cfg.b2 ** count.float()
     lr = lr_at(cfg, state.count)
-    for n, p in params.items():
-        g = grads[n].float() * scale
-        m = state.mu[n]
-        v = state.nu[n]
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if decay[n]:  # decoupled weight decay
-            step = step + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * step).to(p.dtype))
+    for group in _groups(params, decay):
+        ps = [params[n] for n in group]
+        g = torch._foreach_mul([grads[n].float() for n in group], scale)
+        m = [state.mu[n] for n in group]
+        v = [state.nu[n] for n in group]
+        torch._foreach_mul_(m, cfg.b1)                  # m = b1 m + (1 - b1) g
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
+        gg = torch._foreach_mul(g, 1 - cfg.b2)          # v = b2 v + (1 - b2) g g
+        torch._foreach_mul_(gg, g)
+        del g
+        torch._foreach_mul_(v, cfg.b2)
+        torch._foreach_add_(v, gg)
+        del gg
+        step = torch._foreach_div(m, b1c)               # (m / b1c) / (sqrt(v / b2c) + eps)
+        root = torch._foreach_div(v, b2c)
+        torch._foreach_sqrt_(root)
+        torch._foreach_add_(root, cfg.eps)
+        torch._foreach_div_(step, root)
+        del root
+        pf = [p.float() for p in ps]
+        if decay[group[0]]:  # decoupled weight decay
+            torch._foreach_add_(step, torch._foreach_mul(pf, cfg.weight_decay))
+        torch._foreach_mul_(step, lr)
+        torch._foreach_copy_(ps, torch._foreach_sub(pf, step))
     return params, OptState(state.mu, state.nu, count), {"grad_norm": gnorm, "lr": lr}
+
+
+def _groups(params: dict[str, torch.Tensor], decay: dict[str, bool]) -> list[list[str]]:
+    """The leaves in runs of one decay flag, each run at most as many
+    elements as the largest leaf."""
+    cap = max((p.numel() for p in params.values()), default=0)
+    groups: list[list[str]] = []
+    size = 0
+    for n, p in params.items():
+        if not groups or decay[n] != decay[groups[-1][0]] or size + p.numel() > cap:
+            groups.append([])
+            size = 0
+        groups[-1].append(n)
+        size += p.numel()
+    return groups

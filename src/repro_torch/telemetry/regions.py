@@ -12,9 +12,10 @@ regions tile the step's device span exactly and nested regions never
 count twice.  A region's time is the stream's elapsed time between its
 boundaries, idle included.
 
-Regions: ``embed``, ``attention``, ``ssm``, ``moe``, ``mlp``,
-``head_loss`` (each in phases ``fwd``, ``recompute`` and ``bwd``) and
-``optimizer`` (one phase).  A forward boundary is an identity
+Regions: ``embed``, ``attention``, ``ssm``, ``ssm_scan`` (the SSD's
+chunked scan, nested in ``ssm``), ``moe``, ``mlp``, ``head_loss`` (each
+in phases ``fwd``, ``recompute`` and ``bwd``) and ``optimizer`` (one
+phase).  A forward boundary is an identity
 `torch.autograd.Function` whose backward marks the matching backward
 boundary in reverse order; it saves no tensor, so numbers do not change.
 A forward boundary that fires while the autograd engine runs a backward

@@ -263,6 +263,8 @@ CARD_CASES = {
     # the benchmark cells' shapes (granite-3-2b)
     "b4s4096": (4, 4096, 32, 8, 64, torch.bfloat16, None, None, 1024),
     "b32s512": (32, 512, 32, 8, 64, torch.bfloat16, None, None, 512),
+    # hymba-1.5b's cell: 25 heads over 5 KV heads, a 1,024-token window
+    "hymba-b4s4096": (4, 4096, 25, 5, 64, torch.bfloat16, 1024, None, 1024),
     "d128": (2, 1024, 16, 4, 128, torch.bfloat16, None, None, 1024),
     "d256": (2, 512, 8, 2, 256, torch.bfloat16, None, None, 512),
     "window-g5": (2, 2048, 25, 5, 64, torch.bfloat16, 300, None, 1024),
@@ -345,6 +347,40 @@ def test_granite_train_step_takes_the_kernel(card, monkeypatch):
     monkeypatch.setattr(kernel_module, "launches", dict.fromkeys(kernel_module.launches, 0))
     state, metrics = step(state, batch)
     assert torch.isfinite(metrics["loss"])
+    assert kernel_module.launches == {"forward": 4, "backward_dq": 2, "backward_dkv": 2}
+    with torch.no_grad():
+        model.forward(state.params, batch)
+    assert kernel_module.launches["forward"] == 6
+
+
+@pytest.mark.card
+def test_hymba_train_step_takes_the_kernel(card, monkeypatch):
+    """Two layers of hymba-1.5b at full width over 2 x 2,048 tokens (its
+    1,024-token window and groups of 5 query heads a KV head), remat on:
+    each layer's attention runs forward twice and backward once (two
+    launches), as granite's, beside the SSD scan at its chunk of 256; the
+    loss and every updated weight are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import BASELINE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2)
+    assert cfg.remat and cfg.attn_remat and cfg.head_dim == 64 and cfg.window == 1024
+    assert cfg.ssm_chunk == 256
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(0), device="cuda")
+    step, _ = build_train_step(model, make_local_mesh(device="cuda"), BASELINE_PLAN,
+                               AdamWConfig())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2049), device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    monkeypatch.setattr(kernel_module, "launches", dict.fromkeys(kernel_module.launches, 0))
+    state, metrics = step(state, batch)
+    assert torch.isfinite(metrics["loss"])
+    for name, p in state.params.named_parameters():
+        assert torch.isfinite(p).all(), name
     assert kernel_module.launches == {"forward": 4, "backward_dq": 2, "backward_dkv": 2}
     with torch.no_grad():
         model.forward(state.params, batch)

@@ -340,7 +340,9 @@ def test_split_scan_and_query_split_per_device_flops_are_near_the_one_device_ove
     heads and 1 x 8 KV groups do not divide 16: each rank attends with
     its 256 of the 4,096 decoder queries and its 64 of the 1,024 encoder
     frames, k and v whole) do at most 2x the one-device step's work at
-    one row, over 16, a device: 1.0318x and exactly 1x.  With the whole
+    one row, over 16, a device: 1.0320x and exactly 1x (1.0318x before
+    the scan took the state entering each chunk as one product over the
+    chunks, a product each rank makes for its own heads).  With the whole
     scan and the whole attention, 3.1307x and 4.5294x; with the scan
     split and the projections computed whole and gathered (a 16th of
     the first 3,344 ``in_proj`` columns and all of the last 8 a rank),
@@ -354,7 +356,7 @@ def test_split_scan_and_query_split_per_device_flops_are_near_the_one_device_ove
     one = _one_device(cfg, ShapeConfig("p", 4096, 1, "prefill"), sharding.BASELINE_PLAN, 1)
     ratio = got["costs"].flops * 16 / one["costs"].flops
     assert ratio <= 2
-    assert ratio == pytest.approx(1.0318 if arch == "mamba2-130m" else 1.0, abs=1e-4)
+    assert ratio == pytest.approx(1.0320 if arch == "mamba2-130m" else 1.0, abs=1e-4)
 
 
 #: mamba2-130m at full widths cut to 2 layers, a 4,096 prefill at one

@@ -4,8 +4,9 @@ on the CPU, where each boundary's host time is its time.
 A reduced dense config with layer and query-block remat and a hybrid one:
 the regions change no number (losses, first moments and parameters bit
 for bit after two steps, also on two Gloo ranks), mark nothing while off,
-tile the step exactly, read ``recompute`` only under remat, turn on under
-a profiler with no other call, and sit on the profiler's clock.  The
+tile the step exactly, read ``recompute`` only under remat, nest the SSD's
+scan inside its mixer, turn on under a profiler with no other call, and
+sit on the profiler's clock.  The
 event path (a card's) runs on stand-in events: folding never waits.
 """
 from __future__ import annotations
@@ -99,7 +100,7 @@ def test_regions_change_no_number(case):
         assert torch.equal(on.opt.mu[n], off.opt.mu[n]), n
         assert torch.equal(on.opt.nu[n], off.opt.nu[n]), n
     names = {k.split(".")[1] for r in on_mon.recorder.history for k in _regions(r.side)}
-    assert names >= REGION_NAMES | ({"ssm"} if case == "hybrid" else set())
+    assert names >= REGION_NAMES | ({"ssm", "ssm_scan"} if case == "hybrid" else set())
     assert all(not _regions(r.side) for r in off_mon.recorder.history)
 
 
@@ -139,6 +140,31 @@ def test_intervals_tile_the_step(case):
         parts = sum(round(v * 1e9) for k, v in side.items() if k != "region.step")
         assert parts == round(side["region.step"] * 1e9) > 0
         assert "region.none" in side and all(v >= 0 for v in side.values())
+
+
+def test_ssd_scan_nests_inside_the_ssd_mixer():
+    """The hybrid's ``ssm_scan`` (`ssm._ssd`) opens and closes inside
+    ``ssm`` in each phase (forward, the layer's recompute, backward): each
+    run of scan intervals is entered from and left to ``ssm`` of its own
+    phase, so the two never share an interval and ``ssm``'s own time is
+    what the scan leaves; the scan runs once a layer in each phase."""
+    cfg = _cfg("hymba-1.5b", **CASES["hybrid"][1])
+    _, _, monitor = _train(cfg, True, steps=1)
+    intervals = [(i["region"], i["phase"]) for i in monitor.regions.log[-1]["intervals"]]
+    runs = {}
+    for at, (name, phase) in enumerate(intervals):
+        if name != "ssm_scan" or intervals[at - 1] == (name, phase):
+            continue
+        end = at
+        while end + 1 < len(intervals) and intervals[end + 1] == (name, phase):
+            end += 1
+        assert intervals[at - 1] == ("ssm", phase), intervals[at - 2:end + 2]
+        assert intervals[end + 1] == ("ssm", phase), intervals[at - 1:end + 3]
+        runs[phase] = runs.get(phase, 0) + 1
+    assert runs == dict.fromkeys(("fwd", "recompute", "bwd"), cfg.n_layers)
+    side = _regions(monitor.recorder.last().side)
+    for phase in ("fwd", "recompute", "bwd"):
+        assert side[f"region.ssm.{phase}"] > 0 and side[f"region.ssm_scan.{phase}"] > 0
 
 
 @pytest.mark.parametrize("remat,attn_remat", [(False, False), (True, False), (False, True),
