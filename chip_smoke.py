@@ -9,11 +9,16 @@ package — in these phases, and exits non-zero if any fails:
 
   build    compiles the five CUDA sources of `csrc/` (`fused_tick.cu`,
            `coactivation.cu`, `frontier_window.cu`, `whatif_matrix.cu`,
-           `regime_stats.cu`) and the attention kernel's (head_dim 64,
+           `regime_stats.cu`), the attention kernel's (head_dim 64,
            bf16) instance (`kernels/attention/csrc/causal_attention.cu`)
-           with nvcc from the checkout, all at once, prints what ptxas
-           says of their registers, shared memory and spills, and fails on
-           any spill;
+           and every instance of the SSD scan (`kernels/ssd/csrc/
+           ssd_scan.cu`: (P, N) = (64, 16) hymba-1.5b, (64, 128)
+           mamba2-130m, (16, 16) the reduced configs) with nvcc from the
+           checkout, all at once, prints what ptxas says of their
+           registers, shared memory and spills, and fails on any spill
+           but those `SPILL_EXEMPT` names with their reason (mamba2's
+           backward and the reduced configs' chunk kernel, each faster
+           than its spill-free build);
   attention  the causal-attention kernel at the benchmark cells' shapes
            (granite-3-2b: [4, 4096, 32, 64] and [32, 512, 32, 64] bf16, 8
            KV heads): its output against the plain walk's, its dq, dk
@@ -26,6 +31,22 @@ package — in these phases, and exits non-zero if any fails:
            989 TFLOP/s), the plain walk's forward and forward + backward,
            and `scaled_dot_product_attention`'s (the yardstick, never
            called by the port); an `attention` line;
+  ssd      the SSD scan's kernels at hymba-1.5b's layer shape in its
+           train cell (xh [4, 4096, 50, 64] and B, C [4, 4096, 16] sliced
+           from one conv output, chunk 256, f32): the output and the
+           gradients of all six inputs against the plain `_ssd`'s, each
+           held to the plain version in f64 (the card tests' limit: at
+           most 4x the plain f32 version's own error, plus 2**-20 of the
+           largest value), then the forward (three launches, keeping the
+           entering states) and the backward (four launches) timed with
+           CUDA events, L2 flushed, beside their bound (the larger of the
+           FLOPs, the chunk kernel's at 67 TFLOP/s of f32 FMA plus the
+           split products' six bf16 MMA passes at 989 TFLOP/s, and the
+           bytes at 3.35 TB/s) and the plain version's forward and
+           forward + backward; then one train step of hymba-1.5b at full
+           width cut to 2 layers, its scan launches counted from zero
+           (each forward kernel 2 x layers times, the pass and the remat,
+           each backward kernel once a layer); an `ssd` line;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
            group shapes, the larger service shape, edge shapes (one step,
@@ -180,8 +201,12 @@ package — in these phases, and exits non-zero if any fails:
            `decode_attention` on the card in both cache layouts and both
            `cast_f32` values (f32 within 1e-6; bf16 within one bf16
            rounding, atol 1e-2 and rtol 2**-7); the train and prefill
-           steps' splits over 16 ranks of `model`, each in its plain
-           in-process version: mamba2-130m's SSD at full width (2 x
+           steps' splits over 16 ranks of `model`, each computed in one
+           process (the scan and the causal splits run the SSD scan's and
+           the attention's CUDA kernels on both sides, kernel against
+           kernel; the kernels against the plain versions are held in the
+           ssd and attention phases and the card tests): mamba2-130m's
+           SSD at full width (2 x
            4,096) in 16 slices of d_inner, the norm's sums of squares
            summed (`ssm.split_ssm`), against `apply_ssm` within 1e-5,
            and the query split (`attention.query_split_attention`, 16
@@ -328,6 +353,31 @@ BF16_FLOPS_PER_S = 989e12
 #: P.V in three parts forward; the backward's S, dP (one each) and dV,
 #: dK, dQ (three parts each)
 ATTENTION_FWD_PASSES, ATTENTION_BWD_PASSES = 4, 11
+#: the SSD phase's shape, hymba-1.5b's layer in its train cell: (B, S, H,
+#: P, N, chunk)
+SSD_CASE = (4, 4096, 50, 64, 16, 256)
+#: bf16 MMAs of one split product: the three parts' products with i + j <= 2
+SSD_MMA_PASSES = 6
+#: the layers of the full-width hymba-1.5b train step whose scan launches
+#: the SSD phase counts
+SSD_TRAIN_LAYERS = 2
+#: ptxas spills the build phase lets pass, by (library, kernel): the most
+#: spill-store bytes each may show, each where the spilling build was
+#: measured faster than a spill-free one (H100).  mamba2-130m's (P 64, N
+#: 128) backward holds dB's [16, 128] register tile a warp through the walk
+#: over the tile pairs and spills ~1.5 KB at 255 registers; keeping dC's
+#: running sum in device memory cut the spill to 132 bytes and made the
+#: kernel 11 % slower (2,189 against 1,976 us at [2, 2048, 24, 64]).  The
+#: reduced configs' (16, 16) chunk kernel, where ptxas picks 48 registers,
+#: spills 8 bytes; asking for two CTAs an SM (`__launch_bounds__(NT, 2)`)
+#: removes the spill but slows it 12 % (22.8 against 20.3 us at [4, 1024,
+#: 8, 16]) and hymba's instance 19 %.  No cell trains mamba2 or a reduced
+#: config
+SPILL_EXEMPT = {("ssd_scan (64, 128)", "ssd_backward_kernel"): 2048,
+                ("ssd_scan (16, 16)", "ssd_chunk_kernel"): 8}
+#: beyond 4x the plain f32 version's own error against f64, this share of
+#: each result's largest value (`tests/test_torch_ssd_kernel.py`)
+SSD_ATOL = 2**-20
 #: with --keep-going: the kernel measurements that failed, and the
 #: errors that count as a failed measurement rather than a crash
 FAILURES = []
@@ -345,6 +395,20 @@ def accumulation_syncs(m: int):
     s = 3 * m + 3
     every = tuple(3 * i + 2 for i in range(m))
     return s, every[-1:], every
+
+
+def entry_kernel(line: str) -> str:
+    """The kernel's own name in ptxas's "Compiling entry function" line: the
+    last name of a mangled ``_ZN`` path (each name after its length), or
+    the name as it stands."""
+    name = re.search(r"function '(\w+)'", line).group(1)
+    i, last = 3, name
+    while name.startswith("_ZN") and i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        last, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+    return last
 
 
 def fail(msg: str) -> None:
@@ -910,6 +974,148 @@ def attention_phase(torch, flush) -> list:
         del q, k, v, dout, o32, lse, ql, kl, vl, mask
         torch.cuda.empty_cache()
     return rows
+
+
+def ssd_inputs(torch, b, s, h, hp, n):
+    """(xh, dt, a, d, b, c, dy) at the scale of the benchmark's weights
+    (Mamba-2's decays: A = -U(1, 16), dt the softplus of N(0, 1) plus an
+    inverse softplus of a step log-uniform in [1e-3, 1e-1]); xh, b and c
+    sliced from one conv output, as `apply_ssm` passes them."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def draw(*shape, rand=False):
+        return (torch.rand if rand else torch.randn)(shape, generator=g, device="cuda")
+
+    a = -(1.0 + 15.0 * draw(h, rand=True))
+    step = torch.exp(math.log(1e-3) + draw(h, rand=True) * (math.log(1e-1) - math.log(1e-3)))
+    dt_bias = step + torch.log(-torch.expm1(-step))
+    dt = torch.logaddexp(draw(b, s, h) + dt_bias, torch.zeros((), device="cuda"))
+    whole = draw(b, s, h * hp + 2 * n)
+    return (whole[..., :h * hp].reshape(b, s, h, hp), dt, a, 1.0 + 0.3 * draw(h),
+            whole[..., h * hp:h * hp + n], whole[..., h * hp + n:], draw(b, s, h, hp))
+
+
+def ssd_phase(torch, flush) -> dict:
+    """The SSD scan's kernels at hymba-1.5b's layer shape: output and the
+    six gradients against the plain `_ssd`, each held to the plain version
+    in f64 within the card tests' limit, then kernel and plain times (CUDA
+    events) beside the bound."""
+    from repro_torch.kernels.ssd import scan
+    from repro_torch.models import ssm
+
+    b, s, h, hp, n, q = SSD_CASE
+    *ins, dy = ssd_inputs(torch, b, s, h, hp, n)
+
+    def run(fn, dtype=None):
+        t = [(x if dtype is None else x.to(dtype)).detach().requires_grad_() for x in ins]
+        y = fn(*t)
+        return [x.detach() for x in (y, *torch.autograd.grad(y, t, dy.to(y.dtype)))]
+
+    got = run(lambda *t: ssm._ssd(*t, q))
+    plain = run(lambda *t: ssm._ssd_plain(*t, q))
+    exact = run(lambda *t: ssm._ssd_plain(*t, q), torch.float64)
+    errors = {}
+    for name, k, p, e in zip(("y", "dxh", "ddt", "da", "dd", "db", "dc"), got, plain, exact):
+        err_k = float((k.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        scale = float(e.abs().max())
+        if not err_k <= 4 * err_p + SSD_ATOL * scale:
+            raise AssertionError(f"ssd {name}: kernel {err_k:.3e} off f64, plain {err_p:.3e}")
+        errors[name] = dict(kernel=err_k, plain=err_p, of_max=err_k / scale)
+    del got, plain, exact
+    torch.cuda.empty_cache()
+
+    xh, dt, a, d, b_, c_ = ins
+    y, hin = scan._forward(xh, dt, a, d, b_, c_, q)
+
+    def with_grad(fn):
+        t = [x.detach().requires_grad_() for x in ins]
+        torch.autograd.grad(fn(*t), t, dy)
+
+    # the work by kernel, per (batch, chunk): the chunk kernel's products
+    # (C.B^T's lower triangle, the chunk states or their gradients) are
+    # f32 FMA; the output and backward kernels' are split products, each
+    # `SSD_MMA_PASSES` bf16 MMAs; fwd FMA + MMA is `scan_flops`
+    nc, tri = s // q, q * (q + 1) // 2
+    state = 2 * q * n * h * hp
+    fma = b * nc * (tri * 2 * n + state)
+    mma = b * nc * (tri * 2 * h * hp + state)
+    bwd_mma = b * nc * (tri * (4 * h * hp + 4 * h * n) + 3 * state)
+    f32 = 4
+    fwd_bytes = f32 * (2 * b * s * h * hp + b * s * h + 2 * b * s * n)
+    bwd_bytes = f32 * (3 * b * s * h * hp + 2 * b * s * h + 4 * b * s * n + b * nc * h * n * hp)
+
+    def bound(mma_, bytes_):
+        flops_s = fma / F32_OPS_PER_S + SSD_MMA_PASSES * mma_ / BF16_FLOPS_PER_S
+        bytes_s = bytes_ / HBM_BYTES_PER_S
+        return max(flops_s, bytes_s) * 1e3, "FLOPs" if flops_s > bytes_s else "bytes"
+
+    bound_ms, fwd_by = bound(mma, fwd_bytes)
+    bwd_bound_ms, bwd_by = bound(bwd_mma, bwd_bytes)
+    row = dict(
+        case="hymba-layer", shape=[b, s, h, hp], state=n, chunk=q, errors=errors,
+        max_abs_err=errors["y"]["kernel"],
+        grad_max_abs_err=max(v["kernel"] for k_, v in errors.items() if k_ != "y"),
+        ms=time_ms(lambda: scan._forward(xh, dt, a, d, b_, c_, q), 10, torch, flush),
+        bwd_ms=time_ms(lambda: scan._backward(xh, dt, a, d, b_, c_, hin, dy, q),
+                       10, torch, flush),
+        bound_ms=bound_ms, bwd_bound_ms=bwd_bound_ms,
+        bound_by=f"forward {fwd_by}, backward {bwd_by}: the larger of the chunk kernel's "
+                 f"FLOPs at 67 TFLOP/s of f32 FMA plus the split products' "
+                 f"{SSD_MMA_PASSES} bf16 MMA passes at 989 TFLOP/s, and the bytes at 3.35 TB/s",
+        fma_flops=fma, mma_flops=mma, bwd_fma_flops=fma, bwd_mma_flops=bwd_mma,
+        bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+        plain_ms=time_ms(lambda: ssm._ssd_plain(*ins, q), 3, torch, flush),
+        plain_fwd_bwd_ms=time_ms(lambda: with_grad(lambda *t: ssm._ssd_plain(*t, q)),
+                                 2, torch, flush))
+    del y, hin, ins, dy
+    torch.cuda.empty_cache()
+    row.update(ssd_train_launches(torch, scan))
+    row["fwd_bwd_ms"] = row["ms"] + row["bwd_ms"]
+    print("ssd " + json.dumps(row), flush=True)
+    return row
+
+
+def ssd_train_launches(torch, scan) -> dict:
+    """The scan's kernel launches in one train step of hymba-1.5b at full
+    width, cut to `SSD_TRAIN_LAYERS` layers (remat on, batch 2 x 2,048),
+    counted from zero: each layer's scan runs its forward twice (the pass
+    and the layer's recompute) and its backward once, so each forward
+    kernel must launch 2 x layers times and each backward kernel layers
+    times.  Returns the counts and their sum."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import BASELINE_PLAN
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=SSD_TRAIN_LAYERS)
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(0), device="cuda")
+    step, _ = build_train_step(model, make_local_mesh(device="cuda"), BASELINE_PLAN,
+                               AdamWConfig())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2049), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(17))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    for key in scan.launches:
+        scan.launches[key] = 0
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = dict(scan.launches)
+    if not torch.isfinite(metrics["loss"]):
+        raise AssertionError(f"the hymba train step's loss is {float(metrics['loss'])}")
+    calls = {"forward": (1 + bool(cfg.remat)) * cfg.n_layers, "backward": cfg.n_layers}
+    sums = {way: sum(v for k, v in counts.items() if k.startswith(way)) for way in calls}
+    if any(v != calls[k.split("_")[0]] for k, v in counts.items()) or sums != {
+            "forward": 3 * calls["forward"], "backward": 4 * calls["backward"]}:
+        raise AssertionError(f"the hymba train step launched {counts} for {calls} scan calls")
+    del state, step, model, batch, tokens
+    torch.cuda.empty_cache()
+    return dict(train_launches=counts, train_scan_calls=calls,
+                launches_fwd=sums["forward"], launches_bwd=sums["backward"])
 
 
 def phase_split(out) -> dict:
@@ -2380,9 +2586,12 @@ QUERY_SPLIT_TOL = (1e-6, 1e-6)
 
 def tensor_parallel_split_cases(torch) -> dict:
     """The train and prefill steps' splits over 16 ranks of `model`, each
-    in its plain in-process version on the card against the whole form,
-    f32: `ssm.split_ssm` (the scan on each rank's 96 channels, the gated
-    norm's sums of squares summed) against `apply_ssm`, within
+    computed in one process on the card against the whole form, f32; the
+    scan and the causal splits run the port's CUDA kernels on both sides
+    (kernel against kernel: each kernel against its plain version is held
+    in the ssd and attention phases and the card tests): `ssm.split_ssm`
+    (the scan on each rank's 96 channels, the gated norm's sums of
+    squares summed) against `apply_ssm`, within
     `SPLIT_SCAN_TOL`; `attention.query_split_attention` (16 ranks' query
     blocks, k and v whole) against `chunked_causal_attention` at
     ``q_chunk`` 1,024 (each rank two blocks in zigzag), with and without
@@ -2714,6 +2923,7 @@ def main() -> int:
     from repro_torch.kernels.frontier import fused, ops
     from repro_torch.kernels.frontier import frontier as kernels
     from repro_torch.kernels.frontier import incidents as coact
+    from repro_torch.kernels.ssd import scan as ssd_scan
     from repro_torch.launch import replay, serve_fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2721,30 +2931,39 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # one nvcc per source, all started together
+    # one nvcc per source and instance, all started together
     t0 = time.perf_counter()
-    sources = [source for source, _ in KERNELS.values()]
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        attention_lib = pool.submit(
-            _lib.build, "causal_attention.cu", causal.CSRC,
-            causal.library_flags(ATTENTION_HEAD_DIM, torch.bfloat16))
-        libs = list(pool.map(lambda src: _lib.build(src, ops.CSRC, ops.NVCC_FLAGS), sources))
-        libs.append(attention_lib.result())
-    print(f"build {[lib.name for lib in libs]} in "
+    builds = {src: (src, ops.CSRC, ops.NVCC_FLAGS) for src, _ in KERNELS.values()}
+    builds["causal_attention"] = ("causal_attention.cu", causal.CSRC,
+                                  causal.library_flags(ATTENTION_HEAD_DIM, torch.bfloat16))
+    for pn in ssd_scan.INSTANCES:
+        builds[f"ssd_scan {pn}"] = ("ssd_scan.cu", ssd_scan.CSRC, ssd_scan.library_flags(*pn))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = dict(zip(builds, pool.map(lambda args: _lib.build(*args), builds.values())))
+    print(f"build {[lib.name for lib in libs.values()]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    spills = []
-    for lib in libs:
+    spills, exempt = [], []
+    for label, lib in libs.items():
+        kernel = None
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("ptxas " + line.strip(), flush=True)
-            if re.search(r"\b[1-9]\d* bytes spill", line):
-                spills.append(f"{lib.name}: {line.strip()}")
+            if "Compiling entry" in line:
+                kernel = entry_kernel(line)
+            spilled = re.search(r"\b(\d+) bytes spill stores", line)
+            if spilled and int(spilled.group(1)) > 0:
+                allowed = SPILL_EXEMPT.get((label, kernel), 0)
+                (exempt if int(spilled.group(1)) <= allowed else spills).append(
+                    f"{label} {kernel}: {line.strip()}")
+    if exempt:
+        print(f"ptxas spills exempt by SPILL_EXEMPT: {exempt}", flush=True)
     if spills:
         fail(f"ptxas spills: {spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MB
     rows = kernel_phase(torch, np, fused, kernels, flush)
     attention_rows = attention_phase(torch, flush)
+    ssd_row = ssd_phase(torch, flush)
     fused_groups = {}
     with recording_fused(fused, fused_groups):
         coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
@@ -2820,6 +3039,16 @@ def main() -> int:
              **{key: attention_rows[0][key] for key in (
                  "ms", "bwd_ms", "plain_ms", "plain_fwd_bwd_ms", "bound_ms", "bwd_bound_ms",
                  "bound_by", "library_ms", "library_fwd_bwd_ms")}),
+        # the launches of the SSD phase's hymba train step; times at
+        # hymba's layer
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+             replaces="none: the JAX package's `_ssd` is plain jnp "
+                      "(src/repro/models/ssm.py)",
+             launches=ssd_row["launches_fwd"] + ssd_row["launches_bwd"],
+             **{key: ssd_row[key] for key in (
+                 "max_abs_err", "grad_max_abs_err", "ms", "bwd_ms", "plain_ms",
+                 "plain_fwd_bwd_ms", "bound_ms", "bwd_bound_ms", "bound_by")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (Hopper, sm_90a): the fleet tick's and the
-models' causal attention.
+"""Hand-written CUDA kernels (Hopper, sm_90a): the fleet tick's, the
+models' causal attention and the SSD scan.
 
 frontier/ — `csrc/` holds the kernels: the fused fleet tick
 (`fused_tick.cu`), the three single-family kernels of the four-dispatch
@@ -15,6 +15,10 @@ flags) and `ref.py` (plain-torch oracles).
 attention/ — `csrc/causal_attention.cu`, the causal attention that
 `models.attention.chunked_causal_attention` runs on CUDA tensors, and
 `causal.py`, its wrapper and the plain version of its arithmetic.
+
+ssd/ — `csrc/ssd_scan.cu`, the Mamba-2 SSD chunked scan that
+`models.ssm._ssd` runs on CUDA tensors, and `scan.py`, its wrapper and
+the plain version of its arithmetic.
 
 `_lib.py` builds and loads every kernel library of the port.
 """

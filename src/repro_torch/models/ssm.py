@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
+from ..kernels.ssd import ssd_scan
 from ..telemetry import regions
 from .layers import dense_init, gathered_columns
 
@@ -127,18 +129,33 @@ def _ssd(xh, dt, a, d_skip, b_, c_, q):
     channels depend on that head's dt, a and D and on the shared B and C
     only, so a slice of the heads gives that slice of y.
 
+    CUDA tensors go to the kernels (`kernels.ssd.ssd_scan`: the same
+    scan in f32 with each chunk's decays and scores kept on the chip; a
+    CUDA input they do not take raises); CPU tensors, and the dry run's
+    fake tensors, take the plain version (`_ssd_plain`).  The region
+    ``ssm_scan`` (nested in ``ssm``) spans either."""
+    xh = regions.enter("ssm_scan", xh)
+    if xh.device.type == "cuda" and not is_fake(xh):
+        y = ssd_scan(xh, dt, a, d_skip, b_, c_, q)
+    else:
+        y = _ssd_plain(xh, dt, a, d_skip, b_, c_, q)
+    return regions.exit("ssm_scan", y)
+
+
+def _ssd_plain(xh, dt, a, d_skip, b_, c_, q):
+    """`_ssd` in plain PyTorch on any device: what CPU tensors take, and
+    what the card's kernels are held against.
+
     Within a chunk, the decay from token j to token i is exp of the
     difference of their cumulative sums, masked to -inf above the
     diagonal *before* the exp: above it the difference is positive and
     overflows, and an inf there would turn the backward of a later mask
     into NaN.  Across chunks, each chunk's entering state is one product
     of the chunks' states with the decays between them (`_segsum` of the
-    chunks' totals), not a loop.  The region ``ssm_scan`` (nested in
-    ``ssm``) spans the function."""
+    chunks' totals), not a loop."""
     b, s, h, hp = xh.shape
     n = b_.shape[-1]
     nc = s // q
-    xh = regions.enter("ssm_scan", xh)
     # chunked views, head-major: [B, NC, H, Q(, P)]
     xq = (xh * dt[..., None]).reshape(b, nc, q, h, hp).transpose(2, 3)  # dt-weighted input
     bq = b_.reshape(b, nc, q, n)
@@ -162,7 +179,7 @@ def _ssd(xh, dt, a, d_skip, b_, c_, q):
     y = y + torch.exp(cum)[..., None] * (cq[:, :, None] @ h_in.transpose(-1, -2))
 
     y = y.transpose(2, 3).reshape(b, s, h, hp)
-    return regions.exit("ssm_scan", y + d_skip[None, None, :, None] * xh.float())
+    return y + d_skip[None, None, :, None] * xh.float()
 
 
 def channel_heads(lo: int, hi: int, head_dim: int) -> tuple[int, int]:

@@ -81,6 +81,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "repro_torch.kernels._lib",
                  "repro_torch.kernels.attention",
                  "repro_torch.kernels.attention.causal",
+                 "repro_torch.kernels.ssd", "repro_torch.kernels.ssd.scan",
                  "repro_torch.replay", "repro_torch.replay.engine",
                  "repro_torch.replay.trace", "repro_torch.launch.replay",
                  "repro_torch.telemetry.collector",
