@@ -2,7 +2,8 @@
 
 `repro_torch` and `chip_smoke.py` must import neither JAX nor anything
 of the `repro` package; the port's entry points run on CUDA unless asked
-for the CPU, and without a GPU they raise instead of carrying on.
+for the CPU, and without a GPU they raise instead of carrying on.  Test
+workers under xdist share the cores (the root `conftest.py`).
 """
 import ctypes
 import json
@@ -356,6 +357,36 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# -- the test processes' thread budget (the root conftest.py) ----------------
+
+_THREAD_PROBE = """
+import os, subprocess, sys
+import torch
+
+def test_worker_and_its_child_take_their_share():
+    share = max(1, len(os.sched_getaffinity(0)) // 2)
+    child = subprocess.run(
+        [sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+        capture_output=True, text=True, check=True)
+    assert (torch.get_num_threads(), int(child.stdout)) == (share, share)
+"""
+
+
+def test_xdist_workers_and_their_children_share_the_cores(tmp_path):
+    """Under `pytest -n 2` a worker's torch, and a process it starts, run
+    on half the cores: the rule of the repo's root conftest.py, here the
+    rootdir conftest of a probe's own run, whatever this process set."""
+    shutil.copy(ROOT / "conftest.py", tmp_path / "conftest.py")
+    (tmp_path / "test_probe.py").write_text(_THREAD_PROBE)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_XDIST_")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "xdist",
+         "-n", "2", "test_probe.py"],
+        capture_output=True, text=True, cwd=tmp_path, timeout=300, env=env,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 # -- thread safety: the sharded service's lanes load and launch at once ------

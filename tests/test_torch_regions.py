@@ -43,14 +43,6 @@ CASES = {
 REGION_NAMES = {"embed", "attention", "mlp", "head_loss", "optimizer"}
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _cfg(arch, **changes):
     changes = dict(dict(attn_q_chunk=16, attn_kv_chunk=16), **changes)
     return dataclasses.replace(get_config(arch).reduced(), **changes)
@@ -354,7 +346,7 @@ from repro_torch.telemetry import Monitor, timed_regions
 import dataclasses
 
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-torch.set_num_threads(1)
+torch.set_num_threads(1)  # the ranks start at once and share the cores
 dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
 cfg = dataclasses.replace(get_config("paper-gpt-125m").reduced(), remat=True,
                           attn_remat=True, attn_q_chunk=16, attn_kv_chunk=16)

@@ -335,7 +335,7 @@ def torchrun_runs():
     """`torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve
     --device cpu --reduced` for each of `TORCHRUN_ARCHS`, all at once, and
     each one's one-process run in this process meanwhile."""
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # 8 ranks start at once and share the cores
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     argv = ["--reduced", "--batch", "4", "--prompt-len", "8", "--decode", "8", "--device", "cpu"]

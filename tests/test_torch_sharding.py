@@ -424,7 +424,7 @@ from repro_torch.optim import AdamWConfig
 rank, init, case_path, plan, data, model_axis, out_path = (
     int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
     int(sys.argv[6]), sys.argv[7])
-torch.set_num_threads(1)
+torch.set_num_threads(1)  # the ranks start at once and share the cores
 dist.init_process_group("gloo", init_method=init, rank=rank,
                         world_size=data * model_axis)
 case = torch.load(case_path, weights_only=False)
@@ -777,7 +777,7 @@ from repro_torch.optim import AdamWConfig
 rank, init, case_path, plan, data, model_axis, out_path = (
     int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
     int(sys.argv[6]), sys.argv[7])
-torch.set_num_threads(1)
+torch.set_num_threads(1)  # the ranks start at once and share the cores
 dist.init_process_group("gloo", init_method=init, rank=rank,
                         world_size=data * model_axis)
 case = torch.load(case_path, weights_only=False)
@@ -1036,7 +1036,7 @@ from repro_torch.distributed.tensor_parallel import gathered
 from repro_torch.launch.mesh import make_local_mesh
 
 rank, init, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-torch.set_num_threads(1)
+torch.set_num_threads(1)  # the ranks start at once and share the cores
 dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
 mesh = make_local_mesh(2, 1, device="cpu")
 gen = torch.Generator().manual_seed(0)
@@ -1152,7 +1152,7 @@ from repro_torch.models import build_model
 rank, init, cases_path, _, data, model_axis, out_path = (
     int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]),
     int(sys.argv[6]), sys.argv[7])
-torch.set_num_threads(1)
+torch.set_num_threads(1)  # the ranks start at once and share the cores
 dist.init_process_group("gloo", init_method=init, rank=rank, world_size=data * model_axis)
 mesh = make_local_mesh(data, model_axis, device="cpu")
 plan = sharding.DECODE_PLAN
