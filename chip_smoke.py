@@ -13,7 +13,8 @@ package — in these phases, and exits non-zero if any fails:
            bf16) instance (`kernels/attention/csrc/causal_attention.cu`)
            and every instance of the SSD scan (`kernels/ssd/csrc/
            ssd_scan.cu`: (P, N) = (64, 16) hymba-1.5b, (64, 128)
-           mamba2-130m, (16, 16) the reduced configs) with nvcc from the
+           mamba2-130m, (16, 16) the reduced configs) and the SSD mixer's
+           chains (`kernels/ssd/csrc/ssd_mixer.cu`) with nvcc from the
            checkout, all at once, prints what ptxas says of their
            registers, shared memory and spills, and fails on any spill
            but those `SPILL_EXEMPT` names with their reason (mamba2's
@@ -47,6 +48,19 @@ package — in these phases, and exits non-zero if any fails:
            width cut to 2 layers, its scan launches counted from zero
            (each forward kernel 2 x layers times, the pass and the remat,
            each backward kernel once a layer); an `ssd` line;
+  mixer    the SSD mixer's two chains at hymba-1.5b's layer shape in its
+           train cell (`in_proj`'s output [4, 4096, 6482] bf16: d_inner
+           3,200, N 16, 50 heads, conv width 4): each kernel's output and
+           gradients against its plain version, held to the plain version
+           in f64 (the card tests' limit), two runs bit for bit, then the
+           conv (`conv_silu_dt`: one launch forward, two backward) and the
+           norm (`gated_rms_norm`: one forward, two backward) timed with
+           CUDA events, L2 flushed, beside their byte bounds at 3.35 TB/s,
+           the plain chains' forward and forward + backward (the model's
+           own ops, the yardstick) and each kernel's ptxas entry; the
+           launches of both in the ssd phase's hymba train step (each
+           forward kernel 2 x layers times, each backward and reduction
+           layers times); a `mixer` line;
   kernel   runs the fused tick kernel on the card against its plain torch
            version on the same inputs (numpy seeds) at the service's own
            group shapes, the larger service shape, edge shapes (one step,
@@ -273,6 +287,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
@@ -378,6 +393,15 @@ SPILL_EXEMPT = {("ssd_scan (64, 128)", "ssd_backward_kernel"): 2048,
 #: beyond 4x the plain f32 version's own error against f64, this share of
 #: each result's largest value (`tests/test_torch_ssd_kernel.py`)
 SSD_ATOL = 2**-20
+#: the mixer phase's shape, hymba-1.5b's layer in its train cell: (B, S,
+#: d_inner, N, H, conv width)
+MIXER_CASE = (4, 4096, 3200, 16, 50, 4)
+#: beyond 4x the plain version's own error against f64, this share of each
+#: result's largest value (`tests/test_torch_ssd_mixer.py`)
+MIXER_ATOL = 2**-20
+#: each mixer kernel's prefix in `kernels.ssd.mixer.launches` and in its
+#: kernels' names
+MIXER_LAUNCH_PREFIX = {"conv_silu_dt": "conv_", "gated_rms_norm": "norm_"}
 #: with --keep-going: the kernel measurements that failed, and the
 #: errors that count as a failed measurement rather than a crash
 FAILURES = []
@@ -1100,11 +1124,15 @@ def ssd_train_launches(torch, scan) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (2, 2049), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(17))
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    for key in scan.launches:
-        scan.launches[key] = 0
+    from repro_torch.kernels.ssd import mixer
+
+    for counts in (scan.launches, mixer.launches):
+        for key in counts:
+            counts[key] = 0
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     counts = dict(scan.launches)
+    mixer_counts = dict(mixer.launches)
     if not torch.isfinite(metrics["loss"]):
         raise AssertionError(f"the hymba train step's loss is {float(metrics['loss'])}")
     calls = {"forward": (1 + bool(cfg.remat)) * cfg.n_layers, "backward": cfg.n_layers}
@@ -1112,10 +1140,175 @@ def ssd_train_launches(torch, scan) -> dict:
     if any(v != calls[k.split("_")[0]] for k, v in counts.items()) or sums != {
             "forward": 3 * calls["forward"], "backward": 4 * calls["backward"]}:
         raise AssertionError(f"the hymba train step launched {counts} for {calls} scan calls")
+    want = {key: calls["forward" if key.endswith("forward") else "backward"]
+            for key in mixer_counts}
+    if mixer_counts != want:
+        raise AssertionError(f"the hymba train step launched the mixer's {mixer_counts}, "
+                             f"not {want}")
     del state, step, model, batch, tokens
     torch.cuda.empty_cache()
     return dict(train_launches=counts, train_scan_calls=calls,
-                launches_fwd=sums["forward"], launches_bwd=sums["backward"])
+                launches_fwd=sums["forward"], launches_bwd=sums["backward"],
+                train_mixer_launches=mixer_counts)
+
+
+def mixer_inputs(torch, b, s, d, n, h, w, dtype):
+    """zx, conv_w, conv_b, dt_bias, y, the norm's scale, and the gradients
+    of the conv's four outputs and of the norm's, at the benchmark
+    weights' scales (dt_bias the inverse softplus of a step log-uniform in
+    [1e-3, 1e-1])."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=g, device="cuda")
+
+    step = torch.exp(math.log(1e-3) + torch.rand((h,), generator=g, device="cuda")
+                     * (math.log(1e-1) - math.log(1e-3)))
+    f32 = torch.float64 if dtype == torch.float64 else torch.float32
+    return dict(zx=draw(b, s, 2 * d + 2 * n + h).to(dtype),
+                conv_w=draw(w, d + 2 * n, scale=0.5).to(dtype),
+                conv_b=draw(d + 2 * n, scale=0.1).to(dtype),
+                dt_bias=(step + torch.log(-torch.expm1(-step))).to(f32),
+                y=draw(b, s, d).to(f32), scale=draw(d, scale=0.2, shift=1.0).to(dtype),
+                g_conv=[draw(b, s, k).to(f32) for k in (d, n, n, h)],
+                g_norm=draw(b, s, d).to(dtype))
+
+
+def mixer_phase(torch, flush, libs) -> dict:
+    """The SSD mixer's two chains at hymba-1.5b's layer shape: each
+    kernel's output and gradients held to its plain version in f64 within
+    the card tests' limit, two runs bit for bit, then kernel and plain
+    times (CUDA events) beside the byte bounds, and each kernel's ptxas
+    entry from the build phase's log."""
+    from repro_torch.kernels.ssd import mixer
+    from repro_torch.models import ssm
+
+    b, s, d, n, h, w = MIXER_CASE
+    bf16 = torch.bfloat16
+    t = mixer_inputs(torch, b, s, d, n, h, w, bf16)
+    c = d + 2 * n
+
+    def conv_run(fn, t_):
+        ins = [t_[k].detach().requires_grad_() for k in ("zx", "conv_w", "conv_b", "dt_bias")]
+        outs = fn(*ins)
+        grads = torch.autograd.grad(outs, ins, [x.to(o.dtype) for x, o in zip(t_["g_conv"], outs)])
+        return [x.detach() for x in (*outs, *grads)]
+
+    def norm_run(fn, t_):
+        ins = [t_[k].detach().requires_grad_() for k in ("y", "zx", "scale")]
+        out = fn(*ins)
+        grads = torch.autograd.grad(out, ins, t_["g_norm"].to(out.dtype))
+        return [x.detach() for x in (out, *grads)]
+
+    kernels = {
+        "conv_silu_dt": (conv_run, lambda *a: mixer.conv_silu_dt(*a, d, n),
+                         lambda *a: mixer.conv_silu_dt_ref(*a, d, n),
+                         ("x", "b", "c", "dt", "dzx", "dconv_w", "dconv_b", "ddt_bias")),
+        "gated_rms_norm": (norm_run, mixer.gated_rms_norm, mixer.gated_rms_norm_ref,
+                           ("out", "dy", "dzx", "dscale")),
+    }
+    rows = {}
+    for name, (run, kernel, plain, names) in kernels.items():
+        got = run(kernel, t)
+        if not all(torch.equal(x, y) for x, y in zip(got, run(kernel, t))):
+            raise AssertionError(f"mixer {name}: two runs differ")
+        ref = run(plain, t)
+        exact = run(plain, {k: ([x.double() for x in v] if isinstance(v, list) else v.double())
+                            for k, v in t.items()})
+        errors = {}
+        for key, k, p, e in zip(names, got, ref, exact):
+            err_k = float((k.double() - e).abs().max())
+            err_p = float((p.double() - e).abs().max())
+            scale = float(e.abs().max())
+            if not err_k <= 4 * err_p + MIXER_ATOL * scale:
+                raise AssertionError(f"mixer {name} {key}: kernel {err_k:.3e} off f64, "
+                                     f"plain {err_p:.3e}")
+            errors[key] = dict(kernel=err_k, plain=err_p, of_max=err_k / max(scale, 1e-30))
+        rows[name] = dict(errors=errors, max_abs_err=errors[names[0]]["kernel"],
+                          grad_max_abs_err=max(v["kernel"] for k_, v in errors.items()
+                                               if k_.startswith("d")),
+                          bitwise_repeat=True)
+        del got, ref, exact
+        torch.cuda.empty_cache()
+
+    zx, cw, cb, dtb = t["zx"], t["conv_w"], t["conv_b"], t["dt_bias"]
+    y, sc = t["y"], t["scale"]
+    gx, gb, gc, gdt = t["g_conv"]
+    dzx = torch.empty_like(zx)
+    _, rstd = mixer._norm_forward(y, zx, sc)
+    # bytes read and written once: the conv reads x, B, C and dt in bf16
+    # and writes them in f32; its backward reads the bf16 inputs and the
+    # f32 gradients and writes bf16; the norm reads y f32 and z bf16 and
+    # writes bf16; its backward reads y, z and the bf16 gradient and writes
+    # dy f32 and dz bf16
+    tokens = b * s
+    moved = {"conv_silu_dt": (tokens * (c + h) * (2 + 4), tokens * (c + h) * (2 + 4 + 2)),
+             "gated_rms_norm": (tokens * d * (4 + 2 + 2), tokens * d * (4 + 2 + 2 + 4 + 2))}
+
+    def plain_conv(zx_, cw_, cb_, dtb_):
+        _, xc, b_, c_, dt = torch.split(zx_, [d, d, n, n, h], dim=-1)
+        out = torch.nn.functional.silu(
+            ssm._causal_conv(torch.cat([xc, b_, c_], -1), cw_, cb_).float())
+        return (*torch.split(out, [d, n, n], -1), ssm._softplus(dt.float() + dtb_))
+
+    def plain_norm(y_, zx_, sc_):
+        return ssm._gated_norm(types.SimpleNamespace(gate_norm_scale=sc_), y_,
+                               zx_[..., :d]).to(zx_.dtype)
+
+    def fwd_bwd(run, fn):
+        return lambda: run(fn, t)
+
+    timed = {
+        "conv_silu_dt": (lambda: mixer._conv_forward(zx, cw, cb, dtb, d, n),
+                         lambda: mixer._conv_backward(zx, cw, cb, dtb, d, n, gx, gb, gc, gdt, dzx),
+                         lambda: plain_conv(zx, cw, cb, dtb), fwd_bwd(conv_run, plain_conv)),
+        "gated_rms_norm": (lambda: mixer._norm_forward(y, zx, sc),
+                           lambda: mixer._norm_backward(y, zx, sc, rstd, t["g_norm"], dzx),
+                           lambda: plain_norm(y, zx, sc), fwd_bwd(norm_run, plain_norm)),
+    }
+    log = next(lib for label, lib in libs.items() if label == "ssd_mixer").with_suffix(".log")
+    ptxas = ptxas_entries(log.read_text())
+    for name, (fwd, bwd, plain_fwd, plain_both) in timed.items():
+        fwd_bytes, bwd_bytes = moved[name]
+        row = rows[name]
+        row.update(
+            case="hymba-layer", shape=[b, s, 2 * d + 2 * n + h], d_inner=d, state=n, heads=h,
+            width=w, ms=time_ms(fwd, 20, torch, flush), bwd_ms=time_ms(bwd, 20, torch, flush),
+            bytes=fwd_bytes, bwd_bytes=bwd_bytes, bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+            bwd_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes read and written once at 3.35 TB/s",
+            plain_ms=time_ms(plain_fwd, 5, torch, flush),
+            plain_fwd_bwd_ms=time_ms(plain_both, 3, torch, flush),
+            ptxas={k: v for k, v in ptxas.items()
+                   if k.startswith(MIXER_LAUNCH_PREFIX[name]) or k == "sum_rows_kernel"},
+            spill_exempt={k: v for k, v in SPILL_EXEMPT.items() if k[0] == "ssd_mixer"})
+        row["of_bound"] = row["ms"] / row["bound_ms"]
+        row["bwd_of_bound"] = row["bwd_ms"] / row["bwd_bound_ms"]
+        row["fwd_bwd_ms"] = row["ms"] + row["bwd_ms"]
+    del t, zx, y, dzx, rstd, gx, gb, gc, gdt
+    torch.cuda.empty_cache()
+    print("mixer " + json.dumps(rows), flush=True)
+    return rows
+
+
+def ptxas_entries(log: str) -> dict:
+    """Each kernel's registers and spill-store bytes in ptxas's report (the
+    largest over its template instances)."""
+    out, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            kernel = entry_kernel(line)
+            out.setdefault(kernel, dict(registers=0, spill_stores=0))
+        elif kernel and "registers" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                out[kernel]["registers"] = max(out[kernel]["registers"], int(used.group(1)))
+        if kernel:
+            spilled = re.search(r"\b(\d+) bytes spill stores", line)
+            if spilled:
+                out[kernel]["spill_stores"] = max(out[kernel]["spill_stores"],
+                                                  int(spilled.group(1)))
+    return out
 
 
 def phase_split(out) -> dict:
@@ -2923,6 +3116,7 @@ def main() -> int:
     from repro_torch.kernels.frontier import fused, ops
     from repro_torch.kernels.frontier import frontier as kernels
     from repro_torch.kernels.frontier import incidents as coact
+    from repro_torch.kernels.ssd import mixer as ssd_mixer
     from repro_torch.kernels.ssd import scan as ssd_scan
     from repro_torch.launch import replay, serve_fleet
 
@@ -2938,6 +3132,7 @@ def main() -> int:
                                   causal.library_flags(ATTENTION_HEAD_DIM, torch.bfloat16))
     for pn in ssd_scan.INSTANCES:
         builds[f"ssd_scan {pn}"] = ("ssd_scan.cu", ssd_scan.CSRC, ssd_scan.library_flags(*pn))
+    builds["ssd_mixer"] = ("ssd_mixer.cu", ssd_mixer.CSRC, ssd_mixer.library_flags())
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(zip(builds, pool.map(lambda args: _lib.build(*args), builds.values())))
     print(f"build {[lib.name for lib in libs.values()]} in "
@@ -2964,6 +3159,7 @@ def main() -> int:
     rows = kernel_phase(torch, np, fused, kernels, flush)
     attention_rows = attention_phase(torch, flush)
     ssd_row = ssd_phase(torch, flush)
+    mixer_rows = mixer_phase(torch, flush, libs)
     fused_groups = {}
     with recording_fused(fused, fused_groups):
         coact_launches, groups = fabric_phase(fused, kernels, coact, serve_fleet)
@@ -3049,6 +3245,18 @@ def main() -> int:
              **{key: ssd_row[key] for key in (
                  "max_abs_err", "grad_max_abs_err", "ms", "bwd_ms", "plain_ms",
                  "plain_fwd_bwd_ms", "bound_ms", "bwd_bound_ms", "bound_by")}),
+        # the launches of the SSD phase's hymba train step; times at
+        # hymba's layer
+        *(dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/ssd/csrc/ssd_mixer.cu",
+               replaces="none: the JAX package's mixer is plain jnp "
+                        "(src/repro/models/ssm.py)",
+               launches=sum(v for k, v in ssd_row["train_mixer_launches"].items()
+                            if k.startswith(MIXER_LAUNCH_PREFIX[name])),
+               **{key: row[key] for key in (
+                   "max_abs_err", "grad_max_abs_err", "ms", "bwd_ms", "plain_ms",
+                   "plain_fwd_bwd_ms", "bound_ms", "bwd_bound_ms", "bound_by")})
+          for name, row in mixer_rows.items()),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch._subclasses.fake_tensor import is_fake
 
-from ..kernels.ssd import ssd_scan
+from ..kernels.ssd import ProjGrad, conv_silu_dt, gated_rms_norm, ssd_scan
 from ..telemetry import regions
 from .layers import dense_init, gathered_columns
 
@@ -90,14 +90,20 @@ def _split_proj(cfg, zxbcdt):
     return torch.split(zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in its own dtype where that is wider (f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _gated_norm(p, y, z, tp=None):
-    """The gated RMS norm over d_inner; with `tp` and the scale split,
-    this rank's slice of it (the norm itself is over the whole dim)."""
-    yf = y.float() * F.silu(z.float())
+    """The gated RMS norm over d_inner, in f32 (f64 for f64 inputs); with
+    `tp` and the scale split, this rank's slice of it (the norm itself is
+    over the whole dim)."""
+    yf = _wide(y) * F.silu(_wide(z))
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
     if tp is not None and tp.dim(p.gate_norm_scale) is not None:
         yf = tp.split(yf, -1)
-    return yf * p.gate_norm_scale.float()
+    return yf * _wide(p.gate_norm_scale)
 
 
 def _causal_conv(x, w, b):
@@ -267,8 +273,35 @@ def _splits_scan(p: SSM, cfg, tp) -> bool:
             and cfg.ssm_d_inner % tp.size == 0)
 
 
+def _on_card(x: torch.Tensor, tp) -> bool:
+    """Whether `apply_ssm` takes the mixer's kernels: a CUDA tensor that
+    is not the dry run's fake one, and no tensor-parallel context."""
+    return tp is None and x.device.type == "cuda" and not is_fake(x)
+
+
+def _apply_ssm_kernels(p: SSM, x: torch.Tensor, cfg, q: int) -> torch.Tensor:
+    """`apply_ssm` on the card without `tp`: ``in_proj``, then the conv,
+    its silu and dt's softplus in one launch (`kernels.ssd.conv_silu_dt`,
+    reading x, B, C and dt at their strides in ``in_proj``'s output), the
+    scan, and the gated norm in one launch that writes ``out_proj``'s
+    operand (`kernels.ssd.gated_rms_norm`); their backwards fill one
+    gradient of ``in_proj``'s output (`kernels.ssd.ProjGrad`)."""
+    b, s, _ = x.shape
+    d_inner, h, hp, n, _ = _dims(cfg)
+    zxbcdt = x @ p.in_proj
+    link = ProjGrad()
+    xc, b_, c_, dt = conv_silu_dt(zxbcdt, p.conv_w, p.conv_b, p.dt_bias, d_inner, n, link)
+    y = _ssd(xc.reshape(b, s, h, hp), dt, -torch.exp(p.A_log), p.D, b_, c_, q)
+    y = gated_rms_norm(y.reshape(b, s, d_inner), zxbcdt, p.gate_norm_scale, link)
+    return y @ p.out_proj
+
+
 def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """Full-sequence SSD. x: [B, S, D] -> [B, S, D].
+
+    On the card without `tp` (`_on_card`), the mixer's elementwise chains
+    are the kernels of `_apply_ssm_kernels`; every other path (CPU and
+    fake tensors, any `tp`) is the plain code below.
 
     Where `_splits_scan`, the scan runs on this rank's slice of d_inner,
     the channels of its ``out_proj`` rows, on the heads they touch, from
@@ -287,6 +320,8 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     d_inner, h, hp, n, conv_dim = _dims(cfg)
     q = min(cfg.ssm_chunk, s)
     assert s % q == 0, f"seq {s} must divide ssm_chunk {q}"
+    if _on_card(x, tp):
+        return _apply_ssm_kernels(p, x, cfg, q)
     if _splits_scan(p, cfg, tp):
         lo = tp.start(d_inner // tp.size)
         hi = lo + d_inner // tp.size
